@@ -1,0 +1,267 @@
+"""Detector — the end-to-end ArUco/AprilTag pipeline; counterpart of
+``aruco3_tpu/detector.py``.
+
+``detect_batch_arrays`` runs the stages of the JAX package's batched
+kernel route on a (B, H, W[, C]) uint8 tensor:
+
+1. luma (torch)
+2. kernel 1 ``ops.frontend``: threshold, opening, pooling, near mask,
+   pyramid level 1
+3. kernel 2 ``ops.coarse_fit``: both label planes and their quad fits
+4. ``segment.merge_fits`` (torch)
+5. kernel 3 ``ops.refine``: full-resolution corner refinement
+6. ``segment.finalize_quads`` (torch)
+7. homography (torch)
+8. pyramid levels >= 2 as 2x2 means of level 1 (torch)
+9. kernel 4 ``ops.warp_decode``: warp, Otsu, Triangle resize, cell grid
+10. grid tail and dictionary match (torch)
+
+On a CUDA tensor every kernel stage launches its hand-written kernel; on a
+CPU tensor the same function runs each kernel's plain PyTorch version.
+The warp samples with float32 weights where the JAX XLA warp rounds them
+to bfloat16.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from . import frontend, rectify, segment
+from .dictionaries import ARDictionary
+from .ops.coarse_fit import coarse_fit
+from .ops.frontend import threshold_open_pool
+from .ops.refine import refine_corners
+from .ops.warp_decode import warp_decode
+
+
+@dataclass(frozen=True)
+class DetectorConfig:
+    """Detection tunables; defaults and meaning as in the JAX package."""
+
+    threshold_window: int = 7
+    contour_simplification_epsilon: float = 0.05
+    min_side_length_factor: float = 0.2
+    min_corner_separation_factor: float = 0.1
+    homography_sample_size: int = 49
+    filter_high_bit_errors: bool = True
+    max_candidates: int = 32
+    max_inner_candidates: int = 12
+    coarse_factor: int | None = None  # None = auto from image size
+    ccl_rounds: int = 3
+    refine_corners: bool = True
+
+
+@dataclass
+class Marker:
+    """Decoded marker: ``id`` indexes the dictionary, ``code`` is the raw
+    read, corners are clockwise pixel coords from the marker's top-left."""
+
+    id: int
+    code: int
+    corners: list[tuple[int, int]]
+    hamming_distance: int
+
+
+@dataclass
+class Detection:
+    """Host-side output of one frame, with the debug intermediates."""
+
+    grey: np.ndarray | None = None
+    candidates: list = field(default_factory=list)
+    homographies: list = field(default_factory=list)
+    markers: list[Marker] = field(default_factory=list)
+    stats: dict = field(default_factory=dict)
+
+
+def quad_params(cfg: DetectorConfig, ds: int) -> segment.QuadParams:
+    """QuadParams the detector derives from its config: the reference's
+    contour epsilon scales the containment gate (ratio 1 at 0.05)."""
+    eps_scale = cfg.contour_simplification_epsilon / 0.05
+    base = segment.QuadParams()
+    return segment.QuadParams(
+        max_candidates=cfg.max_candidates,
+        max_inner_candidates=cfg.max_inner_candidates,
+        coarse_factor=ds,
+        ccl_rounds=cfg.ccl_rounds,
+        refine=cfg.refine_corners,
+        containment_slack=base.containment_slack * eps_scale,
+        min_containment=min(0.999, base.min_containment / max(eps_scale, 1e-6)),
+    )
+
+
+class Detector:
+    """Runs ``detect_batch_arrays`` on ``device``."""
+
+    def __init__(
+        self,
+        config: DetectorConfig | None = None,
+        dictionary: ARDictionary | None = None,
+        device: str | torch.device = "cpu",
+    ):
+        self.config = config or DetectorConfig()
+        self.dictionary = dictionary or ARDictionary.new_from_named_dict(
+            "ARUCO_DEFAULT"
+        )
+        self.device = torch.device(device)
+
+    def geometry(self, height: int, width: int):
+        """(params, min_edge, min_sep, ds) for an (height, width) frame."""
+        cfg = self.config
+        ds = cfg.coarse_factor or segment.choose_coarse_factor(height, width)
+        min_edge = min(width, height) * cfg.min_side_length_factor
+        min_sep = min(width, height) * cfg.min_corner_separation_factor
+        return quad_params(cfg, ds), min_edge, min_sep, ds
+
+    def detect_batch(self, images) -> dict:
+        """(B, H, W[, C]) uint8 frames -> dict of batched tensors on the
+        detector's device (see ``detect_batch_arrays``)."""
+        images = torch.as_tensor(images).to(self.device)
+        params, min_edge, min_sep, ds = self.geometry(images.shape[1], images.shape[2])
+        return detect_batch_arrays(
+            images, self.dictionary, self.config, params, min_edge, min_sep, ds
+        )
+
+    def detect(self, image) -> Detection:
+        """One (H, W), (H, W, 3) or (H, W, 4) image -> ``Detection``."""
+        arr = np.asarray(image)
+        if arr.dtype != np.uint8:
+            arr = np.clip(arr, 0, 255).astype(np.uint8)
+        out = self.detect_batch(torch.from_numpy(np.ascontiguousarray(arr))[None])
+        return to_host(out, 0)
+
+
+def to_host(out: dict, index: int) -> Detection:
+    """Frame ``index`` of a ``detect_batch`` result as a ``Detection``."""
+    frame = {
+        k: (v[index].cpu().numpy() if torch.is_tensor(v) else v)
+        for k, v in out.items()
+        if k != "stats"
+    }
+    det = Detection(
+        grey=frame["grey"],
+        stats={k: int(v[index]) for k, v in out["stats"].items()},
+    )
+    for k in range(frame["quads"].shape[0]):
+        if not frame["quad_valid"][k]:
+            continue
+        det.candidates.append([(float(x), float(y)) for x, y in frame["quads"][k]])
+        det.homographies.append(
+            np.clip(np.round(frame["patches"][k]), 0, 255).astype(np.uint8)
+        )
+        if frame["marker_valid"][k]:
+            lo, hi = (int(v) for v in frame["marker_code"][k])
+            det.markers.append(
+                Marker(
+                    id=int(frame["marker_id"][k]),
+                    code=lo | (hi << 32),
+                    corners=[
+                        (int(round(float(x))), int(round(float(y))))
+                        for x, y in frame["marker_corners"][k]
+                    ],
+                    hamming_distance=int(frame["marker_dist"][k]),
+                )
+            )
+    return det
+
+
+def detect_batch_arrays(
+    images: torch.Tensor,
+    dictionary: ARDictionary,
+    cfg: DetectorConfig,
+    params: segment.QuadParams,
+    min_edge: float,
+    min_sep: float,
+    ds: int,
+) -> dict:
+    """(B, H, W[, C]) uint8 -> batched outputs with fixed capacity K:
+    grey (B, H, W) u8; quads (B, K, 4, 2) f32; quad_valid (B, K);
+    patches (B, K, S, S) f32; marker_valid (B, K); marker_id / marker_dist /
+    marker_rot (B, K) int; marker_code (B, K, 2) int64 (lo, hi) words;
+    marker_corners (B, K, 4, 2) f32 (corner 0 = marker top-left); stats, a
+    dict of (B,) int32 counters."""
+    grey = frontend.rgb_to_luma_u8(images).contiguous()
+    _, h, w = grey.shape
+    coarse, near, level1 = threshold_open_pool(
+        grey, cfg.threshold_window, params.open_radius, ds
+    )
+    fit1, fit2, inner_coarse = coarse_fit(coarse, params, ds)
+    cand = segment.merge_fits(fit1, fit2, params, ds)
+    quads = cand["quads"]
+    if params.refine and ds > 1:
+        quads = refine_corners(
+            grey,
+            near,
+            quads.contiguous(),
+            cand["centroids"],
+            inner_coarse,
+            cand["is_inner"].contiguous(),
+            cand["valid"].contiguous(),
+            ds,
+            segment.refine_window_size(params, ds),
+        )
+    quads, valid, stats = segment.finalize_quads(
+        quads, cand["valid"], cand["sizes"], cand["overflow"], params, min_edge, min_sep
+    )
+
+    s = cfg.homography_sample_size
+    H, h_valid = rectify.homography_square_to_quad(quads, s)
+    shapes = rectify.pyramid_level_shapes(h, w, rectify.num_levels(h, w))
+    uppers = rectify.upper_levels(level1, shapes)
+    lvl, tlx, tly = rectify.warp_windows(quads, shapes)
+    m = dictionary.get_mark_size()
+    patches, _, grids = warp_decode(
+        grey, uppers, H.contiguous(), lvl, tlx, tly, valid & h_valid, s, m
+    )
+    out = match_tail(quads, valid, h_valid, grids, stats, dictionary, cfg)
+    out["patches"] = patches
+    out["grey"] = grey
+    return out
+
+
+def match_tail(quads, quad_valid, h_valid, grids, stats, dictionary, cfg):
+    """Grid tail, 4-rotation dictionary match, corner rotation and the
+    rejection counters (``_match_tail`` of the JAX package), batched."""
+    b, k = quad_valid.shape
+    m = dictionary.get_mark_size()
+    bits, border_valid = rectify.decode_grids(grids.reshape(b * k, -1), m)
+    ids_r, dists_r = dictionary.find_nearest_bits(bits)  # (B*K, 4)
+    # First minimum over the rotations: the key folds the rotation index in.
+    rot = torch.argmin(dists_r.to(torch.int64) * 4 + torch.arange(4, device=bits.device), dim=-1)
+    best_id = ids_r.gather(1, rot[:, None])[:, 0].reshape(b, k)
+    best_dist = dists_r.gather(1, rot[:, None])[:, 0].reshape(b, k)
+    codes = rectify.bits_to_u32_pairs(bits)  # (B*K, 4, 2)
+    best_code = codes.gather(1, rot[:, None, None].expand(-1, 1, 2))[:, 0].reshape(b, k, 2)
+    rot = rot.reshape(b, k)
+    border_valid = border_valid.reshape(b, k)
+
+    accept = quad_valid & h_valid & border_valid
+    tau_ok = best_dist < dictionary.tau
+    if cfg.filter_high_bit_errors:
+        accept = accept & tau_ok
+
+    def count(mask):
+        return mask.sum(dim=-1, dtype=torch.int32)
+
+    stats = dict(stats)
+    stats["reject_homography"] = count(quad_valid & ~h_valid)
+    stats["reject_border"] = count(quad_valid & h_valid & ~border_valid)
+    stats["reject_tau"] = count(quad_valid & h_valid & border_valid & ~tau_ok)
+    stats["markers"] = count(accept)
+
+    # corners.rotate_left(rot): corner i of the result is corner (i + rot) % 4.
+    idx = (torch.arange(4, device=quads.device) + rot[..., None]) % 4
+    corners_rot = quads.gather(2, idx[..., None].expand(-1, -1, -1, 2))
+    return {
+        "quads": quads,
+        "quad_valid": quad_valid,
+        "marker_valid": accept,
+        "marker_id": best_id,
+        "marker_dist": best_dist,
+        "marker_rot": rot.to(torch.int32),
+        "marker_code": best_code,
+        "marker_corners": corners_rot,
+        "stats": stats,
+    }
