@@ -1,13 +1,17 @@
-// Kernel 2: coarse labelling of both planes and the quad fit of each.
+// Kernel 2: coarse labelling of both planes and, in its fit mode, the quad
+// fit of each.
 //
 // Replaces the TPU kernel aruco3_tpu/ops/coarse_pallas.py coarse_labels
-// (pallas_call at :1470) with its fused fit tail _packed_fit_tail (:94),
-// entered through aruco3_tpu/ops/fit_pallas.py fused_coarsefit_batch
-// (:923).  Its specification is the XLA code it reproduces:
-// segment.label_planes (hole fill, outer CCL, depth-peeled inner labels),
-// segment.fit_quads on both label planes (size admission, raster rank
-// pool, top-k by size, centroid, extreme-point quad, containment) and the
-// dilated inner footprint _dilate3(labels2 < Hc*Wc).
+// (pallas_call at :1470).  Fit mode (a3_coarse_fit) is that kernel with its
+// fused fit tail _packed_fit_tail (:94), entered through
+// aruco3_tpu/ops/fit_pallas.py fused_coarsefit_batch (:923); labels mode
+// (a3_coarse_labels) is coarse_labels with fit_cfg=None (:872) and writes
+// the two label planes out.  Its specification is the XLA code it
+// reproduces: segment.label_planes (hole fill, outer CCL, depth-peeled
+// inner labels), segment.fit_quads on both label planes (size admission,
+// raster rank pool, top-k by size, centroid, extreme-point quad,
+// containment; fit_common.cuh) and the dilated inner footprint
+// _dilate3(labels2 < Hc*Wc).
 //
 // Semantics kept exactly: every flood and CCL is round-limited with
 // synchronous rounds.  A flood round ORs the neighbours of the previous
@@ -15,8 +19,8 @@
 // CCL round takes the 4-neighbour min of the previous plane, then the full
 // row-run min, then the full column-run min.  A forward and a backward
 // serial scan give each cell the same full run min (or OR) the doubling
-// scan computes.  Ties: top-k by size takes
-// the lower pool index, each masked argmax the first cell.
+// scan computes.  Ties: top-k by size takes the lower root, each masked
+// argmax the first cell.
 //
 // What bounds it on an H100: latency.  A 108x192 grid is small; the
 // rounds (about 60 of them) are chains of dependent steps separated by
@@ -26,22 +30,23 @@
 // fills the card's 132 SMs once; the ten boolean planes the floods work
 // on live in shared memory when they fit (10 byte planes with an odd-word
 // row pitch, 212 KB at 1080p with ds = 10) and otherwise in global
-// scratch; the int32 label
-// planes are global scratch (L2-resident).  The fit gives each lane to one
-// warp, which walks the plane with warp-shuffle reductions.
+// scratch; the int32 label planes are global scratch (L2-resident).  The
+// fit gives each lane to one warp, which walks the plane with warp-shuffle
+// reductions.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "fit_common.cuh"
 
 namespace {
 
+using a3fit::FitOut;
+using a3fit::FitParams;
+using a3fit::FitPtrs;
+
 constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
-constexpr int KR_MAX = 1024;
-constexpr int K_MAX = 128;
 constexpr int N_U8_PLANES = 10;
 constexpr int N_INT_PLANES = 4;
+
+using FitSmem = a3fit::FitSmem<THREADS>;
 
 // Cell p = y * wc + x is the linear index the labels carry; byte planes
 // store it at y * pitch + x, with an odd number of 4-byte words per row so
@@ -56,30 +61,11 @@ __device__ __forceinline__ int qof(int p, const Geo& g) {
   return p + (p / g.wc) * (g.pitch - g.wc);
 }
 
-struct FitOut {
-  float* quads;   // (k, 4, 2)
-  uint8_t* valid; // (k,)
-  int* roots;     // (k,)
-  float* cents;   // (k, 2)
-  int* sizes;     // (k,)
-  int* qual;      // ()
-};
-
 struct Params {
-  int ds, k1, k2, kr1, kr2;
+  int k1, k2, kr1, kr2;
   int fill_rounds, ccl_rounds, bg_rounds, inner_depths;
   int inner_flood_rounds, inner_fill_rounds, inner_ccl_rounds;
-  int min_px;
-  float slack;  // containment_slack * ds
-  float min_containment;
-};
-
-struct FitSmem {
-  int chunk[THREADS];
-  int roots_r[KR_MAX];
-  int sizes_r[KR_MAX];
-  int sel[K_MAX];
-  int n_roots;
+  FitParams fit;
 };
 
 __device__ __forceinline__ bool on_border(int p, const Geo& g) {
@@ -198,245 +184,10 @@ __device__ void ccl(int* lbl, const uint8_t* blk, int* tmpi, int rounds,
   }
 }
 
-// Admission of fit_quads: a root whose same-label count at ADMIT_OFFSETS
-// (wrapping around the grid, as jnp.roll does) reaches t - 1.
-__device__ bool is_admitted_root(const int* lab, int p, int t, const Geo& g) {
-  const int l = lab[p];
-  if (l != p) return false;
-  if (t <= 1) return true;
-  const int y = p / g.wc;
-  const int x = p - y * g.wc;
-  const int off2[2][2] = {{0, 1}, {1, 0}};
-  const int off3[6][2] = {{0, 1}, {0, 2}, {1, -1}, {1, 0}, {1, 1}, {2, 0}};
-  const int n = t == 2 ? 2 : 6;
-  int cnt = 0;
-  for (int i = 0; i < n; ++i) {
-    const int dy = t == 2 ? off2[i][0] : off3[i][0];
-    const int dx = t == 2 ? off2[i][1] : off3[i][1];
-    const int yy = ((y + dy) % g.hc + g.hc) % g.hc;
-    const int xx = ((x + dx) % g.wc + g.wc) % g.wc;
-    cnt += lab[yy * g.wc + xx] == l;
-  }
-  return cnt >= t - 1;
-}
-
-__device__ __forceinline__ void amax_update(float s, int i, float& bs, int& bi) {
-  if (s > bs || (s == bs && i < bi)) { bs = s; bi = i; }
-}
-
-__device__ __forceinline__ int warp_argmax(float bs, int bi) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float os = __shfl_down_sync(0xffffffffu, bs, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    amax_update(os, oi, bs, bi);
-  }
-  return __shfl_sync(0xffffffffu, bi, 0);
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return __shfl_sync(0xffffffffu, v, 0);
-}
-
-__device__ __forceinline__ int warp_sum_i(int v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return __shfl_sync(0xffffffffu, v, 0);
-}
-
-__device__ __forceinline__ float cell_x(int p, const Geo& g, int ds) {
-  return static_cast<float>(p % g.wc) * static_cast<float>(ds) +
-         static_cast<float>(ds - 1) * 0.5f;
-}
-__device__ __forceinline__ float cell_y(int p, const Geo& g, int ds) {
-  return static_cast<float>(p / g.wc) * static_cast<float>(ds) +
-         static_cast<float>(ds - 1) * 0.5f;
-}
-
-// segment.fit_quads of one label plane, k lanes from a pool of kr roots.
-__device__ void fit_quads(const int* lab, int k, int kr, const FitOut o,
-                          int* cnt, FitSmem& s, const Geo& g, const Params& pr) {
-  const int P = g.p;
-  const int t = min(pr.min_px, 3);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) cnt[p] = 0;
-  __syncthreads();
-  const int cs = (P + blockDim.x - 1) / blockDim.x;
-  const int c0 = threadIdx.x * cs;
-  const int c1 = min(P, c0 + cs);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int l = lab[p];
-    if (l < P) atomicAdd(&cnt[l], 1);
-  }
-  int mine = 0;
-  for (int p = c0; p < c1; ++p) mine += is_admitted_root(lab, p, t, g);
-  s.chunk[threadIdx.x] = mine;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0;
-    for (int i = 0; i < static_cast<int>(blockDim.x); ++i) {
-      const int c = s.chunk[i];
-      s.chunk[i] = run;
-      run += c;
-    }
-    s.n_roots = run;
-  }
-  __syncthreads();
-  const int n_roots = s.n_roots;
-  int rank = s.chunk[threadIdx.x];
-  for (int p = c0; p < c1 && rank < kr; ++p) {
-    if (is_admitted_root(lab, p, t, g)) s.roots_r[rank++] = p;
-  }
-  for (int j = min(n_roots, kr) + threadIdx.x; j < kr; j += blockDim.x) s.roots_r[j] = 0;
-  __syncthreads();
-  for (int j = threadIdx.x; j < kr; j += blockDim.x)
-    s.sizes_r[j] = j < n_roots ? cnt[s.roots_r[j]] : -1;
-  __syncthreads();
-  // Top-k by size, ties to the lower pool index (jax.lax.top_k's order).
-  for (int j = threadIdx.x; j < kr; j += blockDim.x) {
-    const int sj = s.sizes_r[j];
-    int r = 0;
-    for (int i = 0; i < kr; ++i) {
-      const int si = s.sizes_r[i];
-      r += (si > sj) || (si == sj && i < j);
-    }
-    if (r < k) s.sel[r] = j;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) *o.qual = n_roots;
-
-  const int lane = threadIdx.x & 31;
-  const int ds = pr.ds;
-  for (int l = threadIdx.x >> 5; l < k; l += WARPS) {
-    const int j = s.sel[l];
-    const int sz = s.sizes_r[j];
-    const int root = s.roots_r[j];
-    const int size = max(sz, 0);
-    const float szf = fmaxf(static_cast<float>(size), 1.0f);
-    if (sz < 0) {
-      // Unused lane: no member, every masked argmax is cell 0.
-      if (lane == 0) {
-        const float x0 = cell_x(0, g, ds), y0 = cell_y(0, g, ds);
-        for (int c = 0; c < 4; ++c) {
-          o.quads[(l * 4 + c) * 2] = x0;
-          o.quads[(l * 4 + c) * 2 + 1] = y0;
-        }
-        o.valid[l] = 0;
-        o.roots[l] = root;
-        o.cents[l * 2] = 0.0f;
-        o.cents[l * 2 + 1] = 0.0f;
-        o.sizes[l] = 0;
-      }
-      continue;
-    }
-    double sx = 0.0, sy = 0.0;
-    for (int p = lane; p < P; p += 32) {
-      if (lab[p] != root) continue;
-      sx += static_cast<double>(cell_x(p, g, ds));
-      sy += static_cast<double>(cell_y(p, g, ds));
-    }
-    const float cenx = static_cast<float>(warp_sum(sx)) / szf;
-    const float ceny = static_cast<float>(warp_sum(sy)) / szf;
-
-    float bs = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int p = lane; p < P; p += 32) {
-      if (lab[p] != root) continue;
-      const float dxx = cell_x(p, g, ds) - cenx;
-      const float dyy = cell_y(p, g, ds) - ceny;
-      amax_update(dxx * dxx + dyy * dyy, p, bs, bi);
-    }
-    const int ia = warp_argmax(bs, bi);
-    const float ax = cell_x(ia, g, ds), ay = cell_y(ia, g, ds);
-
-    bs = -INFINITY;
-    bi = 0x7fffffff;
-    for (int p = lane; p < P; p += 32) {
-      if (lab[p] != root) continue;
-      const float dxx = cell_x(p, g, ds) - ax;
-      const float dyy = cell_y(p, g, ds) - ay;
-      amax_update(dxx * dxx + dyy * dyy, p, bs, bi);
-    }
-    const int ic = warp_argmax(bs, bi);
-    const float qcx = cell_x(ic, g, ds), qcy = cell_y(ic, g, ds);
-
-    const float dx = qcx - ax;
-    const float dy = qcy - ay;
-    float bsb = -INFINITY, bsd = -INFINITY;
-    int bib = 0x7fffffff, bid = 0x7fffffff;
-    for (int p = lane; p < P; p += 32) {
-      if (lab[p] != root) continue;
-      const float cross = (cell_x(p, g, ds) - ax) * dy - (cell_y(p, g, ds) - ay) * dx;
-      amax_update(cross, p, bsb, bib);
-      amax_update(-cross, p, bsd, bid);
-    }
-    const int ib = warp_argmax(bsb, bib);
-    const int id = warp_argmax(bsd, bid);
-
-    float qx[4], qy[4];
-    qx[0] = ax; qy[0] = ay;
-    qx[1] = cell_x(ib, g, ds); qy[1] = cell_y(ib, g, ds);
-    qx[2] = qcx; qy[2] = qcy;
-    qx[3] = cell_x(id, g, ds); qy[3] = cell_y(id, g, ds);
-
-    // Containment in the expanded per-edge form of segment.fit_quads.
-    float ex[4], ey[4], term[4];
-    for (int e = 0; e < 4; ++e) {
-      const int n = (e + 1) & 3;
-      ex[e] = qx[n] - qx[e];
-      ey[e] = qy[n] - qy[e];
-      term[e] = qx[e] * qy[n] - qx[n] * qy[e];
-    }
-    const float area2 = ((term[0] + term[1]) + term[2]) + term[3];
-    const float sgn = area2 >= 0.0f ? 1.0f : -1.0f;
-    float av[4], bv[4], rhs[4];
-    for (int e = 0; e < 4; ++e) {
-      const float elen = sqrtf(ex[e] * ex[e] + ey[e] * ey[e]) + 1e-6f;
-      av[e] = sgn * ex[e];
-      bv[e] = sgn * ey[e];
-      const float c0e = bv[e] * qx[e] - av[e] * qy[e];
-      rhs[e] = -pr.slack * elen - c0e;
-    }
-    int inside = 0;
-    for (int p = lane; p < P; p += 32) {
-      if (lab[p] != root) continue;
-      const float px = cell_x(p, g, ds), py = cell_y(p, g, ds);
-      bool in = true;
-      for (int e = 0; e < 4; ++e) in = in && (py * av[e] - px * bv[e] >= rhs[e]);
-      inside += in;
-    }
-    const float frac = static_cast<float>(warp_sum_i(inside)) / szf;
-    if (lane == 0) {
-      for (int c = 0; c < 4; ++c) {
-        o.quads[(l * 4 + c) * 2] = qx[c];
-        o.quads[(l * 4 + c) * 2 + 1] = qy[c];
-      }
-      o.valid[l] = (size >= pr.min_px) && (frac >= pr.min_containment);
-      o.roots[l] = root;
-      o.cents[l * 2] = cenx;
-      o.cents[l * 2 + 1] = ceny;
-      o.sizes[l] = size;
-    }
-  }
-  __syncthreads();
-}
-
-__device__ FitOut frame_out(float* quads, uint8_t* valid, int* roots, float* cents,
-                            int* sizes, int* qual, int b, int k) {
-  FitOut o;
-  o.quads = quads + static_cast<size_t>(b) * k * 8;
-  o.valid = valid + static_cast<size_t>(b) * k;
-  o.roots = roots + static_cast<size_t>(b) * k;
-  o.cents = cents + static_cast<size_t>(b) * k * 2;
-  o.sizes = sizes + static_cast<size_t>(b) * k;
-  o.qual = qual + b;
-  return o;
-}
-
 __global__ void __launch_bounds__(THREADS)
-coarse_fit_kernel(const uint8_t* __restrict__ coarse, float* quads1, uint8_t* valid1,
-                  int* roots1, float* cents1, int* sizes1, int* qual1, float* quads2,
-                  uint8_t* valid2, int* roots2, float* cents2, int* sizes2, int* qual2,
-                  uint8_t* inner_coarse, int* scratch_i, uint8_t* scratch_u8,
-                  int hc, int wc, Params pr, int u8_in_smem) {
+coarse_kernel(const uint8_t* __restrict__ coarse, FitPtrs fit1, FitPtrs fit2,
+              uint8_t* inner_coarse, int* labels1, int* labels2, int* scratch_i,
+              uint8_t* scratch_u8, int hc, int wc, Params pr, int u8_in_smem) {
   extern __shared__ uint8_t dyn[];
   __shared__ FitSmem fs;
   const int b = blockIdx.x;
@@ -461,7 +212,11 @@ coarse_fit_kernel(const uint8_t* __restrict__ coarse, float* quads1, uint8_t* va
   uint8_t* REM = base8 + 9 * Q;
   int* basei = scratch_i + static_cast<size_t>(b) * N_INT_PLANES * P;
   int* LABA = basei;
-  int* LAB2 = basei + P;
+  // Labels mode (labels1 given): no fit; the inner plane is built in place
+  // in its output and the outer plane copied out before the peel's CCLs
+  // reuse LABA.
+  const bool labels_only = labels1 != nullptr;
+  int* LAB2 = labels_only ? labels2 + static_cast<size_t>(b) * P : basei + P;
   int* TMPI = basei + 2 * P;
   int* CNT = basei + 3 * P;
 
@@ -481,14 +236,21 @@ coarse_fit_kernel(const uint8_t* __restrict__ coarse, float* quads1, uint8_t* va
   }
   __syncthreads();
   ccl(LABA, F1, TMPI, pr.ccl_rounds, g);
-  fit_quads(LABA, pr.k1, pr.kr1,
-            frame_out(quads1, valid1, roots1, cents1, sizes1, qual1, b, pr.k1), CNT,
-            fs, g, pr);
-
-  uint8_t* IC = inner_coarse + static_cast<size_t>(b) * P;
-  if (pr.k2 <= 0) {
-    for (int p = threadIdx.x; p < P; p += blockDim.x) IC[p] = 0;
-    return;
+  const a3fit::Twins none = {nullptr, nullptr, nullptr, 0};
+  if (labels_only) {
+    int* L1 = labels1 + static_cast<size_t>(b) * P;
+    for (int p = threadIdx.x; p < P; p += blockDim.x) L1[p] = LABA[p];
+    if (pr.k2 <= 0) {
+      for (int p = threadIdx.x; p < P; p += blockDim.x) LAB2[p] = P;
+      return;
+    }
+  } else {
+    a3fit::fit_plane(LABA, hc, wc, pr.k1, pr.kr1, fit1.frame(b, pr.k1), CNT, fs, pr.fit, none);
+    if (pr.k2 <= 0) {
+      uint8_t* IC = inner_coarse + static_cast<size_t>(b) * P;
+      for (int p = threadIdx.x; p < P; p += blockDim.x) IC[p] = 0;
+      return;
+    }
   }
 
   // Inner pass (segment.label_planes): background, known outside, depth 0.
@@ -559,22 +321,46 @@ coarse_fit_kernel(const uint8_t* __restrict__ coarse, float* quads1, uint8_t* va
     flood(KNOWN, WHITE, TMP, pr.inner_flood_rounds, true, g);
   }
 
-  fit_quads(LAB2, pr.k2, pr.kr2,
-            frame_out(quads2, valid2, roots2, cents2, sizes2, qual2, b, pr.k2), CNT,
-            fs, g, pr);
+  if (labels_only) return;
+  a3fit::fit_plane(LAB2, hc, wc, pr.k2, pr.kr2, fit2.frame(b, pr.k2), CNT, fs, pr.fit, none);
+  uint8_t* IC = inner_coarse + static_cast<size_t>(b) * P;
   for (int p = threadIdx.x; p < P; p += blockDim.x) TMP[qof(p, g)] = LAB2[p] < P;
   __syncthreads();
   for (int p = threadIdx.x; p < P; p += blockDim.x) IC[p] = dil3_at(TMP, p, g);
 }
 
-}  // namespace
-
 // Shared memory the u8 planes may take beside the fit's static arrays.
 constexpr size_t kSmemBudget = 227 * 1024 - sizeof(FitSmem) - 1024;
 
-// coarse (B,hc,wc) 0/1 bytes -> both fits and inner_coarse.  Scratch per
-// frame: 4*hc*wc ints and 10*hc*(wc+8) bytes (the bytes go unused when the
-// planes fit in shared memory).  Returns cudaGetLastError().
+int launch(const uint8_t* coarse, FitPtrs fit1, FitPtrs fit2, uint8_t* inner_coarse,
+           int* labels1, int* labels2, int* scratch_i, uint8_t* scratch_u8, int B, int hc,
+           int wc, const Params& pr, cudaStream_t stream) {
+  const size_t u8_bytes = static_cast<size_t>(N_U8_PLANES) * hc * byte_pitch(wc);
+  const int in_smem = u8_bytes <= kSmemBudget;
+  const size_t smem = in_smem ? u8_bytes : 0;
+  cudaError_t e = cudaFuncSetAttribute(coarse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  coarse_kernel<<<B, THREADS, smem, stream>>>(coarse, fit1, fit2, inner_coarse, labels1, labels2,
+                                              scratch_i, scratch_u8, hc, wc, pr, in_smem);
+  return cudaGetLastError();
+}
+
+Params round_params(int fill_rounds, int ccl_rounds, int bg_rounds, int inner_depths,
+                    int inner_flood_rounds, int inner_fill_rounds, int inner_ccl_rounds) {
+  Params pr = {};
+  pr.fill_rounds = fill_rounds; pr.ccl_rounds = ccl_rounds; pr.bg_rounds = bg_rounds;
+  pr.inner_depths = inner_depths; pr.inner_flood_rounds = inner_flood_rounds;
+  pr.inner_fill_rounds = inner_fill_rounds; pr.inner_ccl_rounds = inner_ccl_rounds;
+  return pr;
+}
+
+}  // namespace
+
+// Fit mode: coarse (B,hc,wc) 0/1 bytes -> both fits and inner_coarse.
+// Scratch per frame: 4*hc*wc ints and 10*hc*(wc+8) bytes (the bytes go
+// unused when the planes fit in shared memory).  Returns
+// cudaGetLastError().
 extern "C" int a3_coarse_fit(
     const uint8_t* coarse, float* quads1, uint8_t* valid1, int* roots1, float* cents1,
     int* sizes1, int* qual1, float* quads2, uint8_t* valid2, int* roots2,
@@ -583,22 +369,31 @@ extern "C" int a3_coarse_fit(
     int kr2, int fill_rounds, int ccl_rounds, int bg_rounds, int inner_depths,
     int inner_flood_rounds, int inner_fill_rounds, int inner_ccl_rounds,
     float slack, float min_containment, int min_px, cudaStream_t stream) {
-  if (k1 > K_MAX || k2 > K_MAX || kr1 > KR_MAX || kr2 > KR_MAX) return cudaErrorInvalidValue;
-  Params pr;
-  pr.ds = ds; pr.k1 = k1; pr.k2 = k2; pr.kr1 = kr1; pr.kr2 = kr2;
-  pr.fill_rounds = fill_rounds; pr.ccl_rounds = ccl_rounds; pr.bg_rounds = bg_rounds;
-  pr.inner_depths = inner_depths; pr.inner_flood_rounds = inner_flood_rounds;
-  pr.inner_fill_rounds = inner_fill_rounds; pr.inner_ccl_rounds = inner_ccl_rounds;
-  pr.min_px = min_px; pr.slack = slack; pr.min_containment = min_containment;
-  const size_t u8_bytes = static_cast<size_t>(N_U8_PLANES) * hc * byte_pitch(wc);
-  const int in_smem = u8_bytes <= kSmemBudget;
-  const size_t smem = in_smem ? u8_bytes : 0;
-  cudaError_t e = cudaFuncSetAttribute(coarse_fit_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  coarse_fit_kernel<<<B, THREADS, smem, stream>>>(
-      coarse, quads1, valid1, roots1, cents1, sizes1, qual1, quads2, valid2, roots2,
-      cents2, sizes2, qual2, inner_coarse, scratch_i, scratch_u8, hc, wc, pr, in_smem);
-  return cudaGetLastError();
+  if (k1 > a3fit::K_MAX || k2 > a3fit::K_MAX || kr1 > a3fit::KR_MAX || kr2 > a3fit::KR_MAX)
+    return cudaErrorInvalidValue;
+  Params pr = round_params(fill_rounds, ccl_rounds, bg_rounds, inner_depths,
+                           inner_flood_rounds, inner_fill_rounds, inner_ccl_rounds);
+  pr.k1 = k1; pr.k2 = k2; pr.kr1 = kr1; pr.kr2 = kr2;
+  pr.fit.ds = ds; pr.fit.min_px = min_px; pr.fit.slack = slack;
+  pr.fit.min_containment = min_containment;
+  const FitPtrs fit1 = {quads1, valid1, roots1, cents1, sizes1, qual1};
+  const FitPtrs fit2 = {quads2, valid2, roots2, cents2, sizes2, qual2};
+  return launch(coarse, fit1, fit2, inner_coarse, nullptr, nullptr, scratch_i, scratch_u8, B,
+                hc, wc, pr, stream);
+}
+
+// Labels mode: coarse (B,hc,wc) 0/1 bytes -> labels1, labels2 (B,hc,wc)
+// int32 with sentinel hc*wc; labels2 is all sentinel unless `inner`.
+// Scratch as for a3_coarse_fit.  Returns cudaGetLastError().
+extern "C" int a3_coarse_labels(const uint8_t* coarse, int* labels1, int* labels2,
+                                int* scratch_i, uint8_t* scratch_u8, int B, int hc, int wc,
+                                int inner, int fill_rounds, int ccl_rounds, int bg_rounds,
+                                int inner_depths, int inner_flood_rounds, int inner_fill_rounds,
+                                int inner_ccl_rounds, cudaStream_t stream) {
+  Params pr = round_params(fill_rounds, ccl_rounds, bg_rounds, inner_depths,
+                           inner_flood_rounds, inner_fill_rounds, inner_ccl_rounds);
+  pr.k2 = inner ? 1 : 0;
+  const FitPtrs none = {};
+  return launch(coarse, none, none, nullptr, labels1, labels2, scratch_i, scratch_u8, B, hc, wc,
+                pr, stream);
 }

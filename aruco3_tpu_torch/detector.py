@@ -7,7 +7,13 @@ kernel route on a (B, H, W[, C]) uint8 tensor:
 1. luma (torch)
 2. kernel 1 ``ops.frontend``: threshold, opening, pooling, near mask,
    pyramid level 1
-3. kernel 2 ``ops.coarse_fit``: both label planes and their quad fits
+3. the fit of both label planes, by the route ``fit_route`` picks:
+   * "fused": kernel 2 ``ops.coarse_fit`` (fit mode) labels and fits in
+     one launch and emits the inner footprint;
+   * "labels": kernel 2 ``ops.coarse_fit.coarse_labels`` (labels mode)
+     writes the planes, ``ops.fit.fused_fit_batch`` fits them (kernel 7,
+     or kernels 5 and 6 above 128 lanes), and the inner footprint is
+     ``segment.inner_footprint`` of the inner plane (torch)
 4. ``segment.merge_fits`` (torch)
 5. kernel 3 ``ops.refine``: full-resolution corner refinement
 6. ``segment.finalize_quads`` (torch)
@@ -31,7 +37,8 @@ import torch
 
 from . import frontend, rectify, segment
 from .dictionaries import ARDictionary
-from .ops.coarse_fit import coarse_fit
+from .ops.coarse_fit import coarse_fit, coarse_labels
+from .ops.fit import fused_fit_batch
 from .ops.frontend import threshold_open_pool
 from .ops.refine import refine_corners
 from .ops.warp_decode import warp_decode
@@ -92,14 +99,54 @@ def quad_params(cfg: DetectorConfig, ds: int) -> segment.QuadParams:
     )
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _chain_levels(rp: int, cp: int) -> int:
+    """Doubling levels (two planes each) of the TPU coarse kernel's scans."""
+    lv = 0
+    s = 1
+    while s < cp:
+        lv += 2
+        s *= 2
+    s = 1
+    while s < rp:
+        lv += 2
+        s *= 2
+    return lv
+
+
+def fit_route(hc: int, wc: int, k1: int, k2: int) -> str:
+    """"fused" or "labels": the route the JAX detector takes from an
+    (hc, wc) coarse grid with k1 outer and k2 inner lanes to the fits.
+
+    The rule is the JAX package's (``detector.py:355-360``), kept here as a
+    copy of its arithmetic: the fused coarse+fit kernel only where its
+    grid fits the TPU kernel's VMEM budget (``coarse_fits_vmem``), its
+    bf16 matrix-unit reductions stay exact (``fused_fit_exact``), and both
+    lane counts are at most 128.  These are limits of the TPU's memory and
+    bf16 arithmetic, not of the card; the port follows them because the
+    two routes agree only up to exact extreme-point ties, so the same
+    route on the same frame and config keeps the port's answers equal to
+    the JAX package's.
+    """
+    rp = max(_round_up(hc, 8), 8)
+    cp = max(256, _round_up(wc + 1, 128))
+    exact = wc <= 255 and rp <= 256 and rp * cp <= 128 * 256
+    fits_vmem = rp <= 512 and rp * cp * 4 * (12 + _chain_levels(rp, cp)) <= 48 * 1024 * 1024
+    return "fused" if exact and fits_vmem and k1 <= 128 and k2 <= 128 else "labels"
+
+
 class Detector:
-    """Runs ``detect_batch_arrays`` on ``device``."""
+    """Runs ``detect_batch_arrays`` on ``device`` (the card unless the
+    caller asks for the CPU)."""
 
     def __init__(
         self,
         config: DetectorConfig | None = None,
         dictionary: ARDictionary | None = None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         self.config = config or DetectorConfig()
         self.dictionary = dictionary or ARDictionary.new_from_named_dict(
@@ -187,7 +234,16 @@ def detect_batch_arrays(
     coarse, near, level1 = threshold_open_pool(
         grey, cfg.threshold_window, params.open_radius, ds
     )
-    fit1, fit2, inner_coarse = coarse_fit(coarse, params, ds)
+    k1, k2 = params.max_candidates, params.max_inner_candidates
+    if fit_route(coarse.shape[1], coarse.shape[2], k1, k2) == "fused":
+        fit1, fit2, inner_coarse = coarse_fit(coarse, params, ds)
+    else:
+        labels1, labels2 = coarse_labels(coarse, params)
+        fit1, fit2 = fused_fit_batch(labels1, labels2, ds, params, k1, k2, dup_skip=True)
+        if k2 > 0:
+            inner_coarse = segment.inner_footprint(labels2)
+        else:
+            inner_coarse = torch.zeros_like(coarse)
     cand = segment.merge_fits(fit1, fit2, params, ds)
     quads = cand["quads"]
     if params.refine and ds > 1:

@@ -1,8 +1,9 @@
 """Fiducial marker dictionaries and the batched Hamming-distance matcher.
 
 Counterpart of ``aruco3_tpu/dictionaries.py``.  The codebooks are read from
-the JAX package's data file by path (importing that package would import
-jax).  The nearest-code search is one float32 ±1 matmul followed by an
+the port's own copy of the JAX package's data file,
+``aruco3_tpu_torch/data/codebooks.npz`` (the two files are equal byte for
+byte).  The nearest-code search is one float32 ±1 matmul followed by an
 argmin whose ties go to the lowest code index.
 """
 
@@ -23,10 +24,7 @@ from .utils.bits import (
 )
 
 _DATA_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "aruco3_tpu",
-    "data",
-    "codebooks.npz",
+    os.path.dirname(os.path.abspath(__file__)), "data", "codebooks.npz"
 )
 
 

@@ -1,3 +1,20 @@
-"""Hand-written CUDA kernels of the main path, each beside its plain
-PyTorch version: ``frontend`` (kernel 1), ``coarse_fit`` (kernel 2),
-``refine`` (kernel 3) and ``warp_decode`` (kernel 4)."""
+"""Hand-written CUDA kernels, each beside its plain PyTorch version:
+``frontend`` (kernel 1), ``coarse_fit`` (kernel 2, fit and labels modes),
+``refine`` (kernel 3), ``warp_decode`` (kernel 4) and ``fit`` (kernels 5-7).
+
+Every kernel wrapper owns a ``Counter``: ``launches`` goes up by one where
+the wrapper launches its kernel and nowhere else, ``plain_calls`` where it
+runs the plain version (CPU tensors)."""
+
+
+class Counter:
+    """Launches of one kernel and calls of its plain version."""
+
+    __slots__ = ("launches", "plain_calls")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_calls = 0

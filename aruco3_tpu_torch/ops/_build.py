@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``aruco3_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` sources compile with one ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library is
-built at first use into ``build/aruco3_tpu_torch/`` at the root of the
-checkout, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads at once.  Nothing here runs when the
-module is imported.
+Each ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all
+started together, and one more links the objects into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library is built at
+first use into ``build/aruco3_tpu_torch/`` at the root of the checkout,
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads at once.  Nothing here runs when the module is
+imported.
 
 Every kernel keeps ``-fmad=false``: the JAX reference decides ties (fit
 argmax, refine scores, Otsu scores) on exact float32 results, and a
@@ -33,7 +34,6 @@ NVCC_FLAGS = [
     "-std=c++17",
     "-O3",
     "-fmad=false",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 ]
@@ -46,6 +46,10 @@ _FLT = ctypes.c_float
 SIGNATURES = {
     "a3_frontend": [_PTR] * 5 + [_INT] * 8 + [_PTR],
     "a3_coarse_fit": [_PTR] * 16 + [_INT] * 15 + [_FLT, _FLT, _INT, _PTR],
+    "a3_coarse_labels": [_PTR] * 5 + [_INT] * 11 + [_PTR],
+    "a3_rank_roots": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+    "a3_fit_lanes": [_PTR] * 7 + [_INT] * 5 + [_FLT, _PTR],
+    "a3_fused_fit": [_PTR] * 15 + [_INT] * 8 + [_FLT, _FLT, _INT, _INT, _PTR],
     "a3_refine": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     "a3_warp_decode": [_PTR] * 12 + [_INT] * 6 + [_PTR],
 }
@@ -80,22 +84,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libaruco3_kernels_{_digest()}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of a failure."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + log)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            "nvcc failed:\n" + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for obj, src in zip(objs, sources())])
+        lib_tmp = os.path.join(tmp, out.name)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]])
+        os.replace(lib_tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
 
 

@@ -1,12 +1,18 @@
-"""Kernel 2 wrapper: both label planes and their quad fits.
+"""Kernel 2 wrappers: both label planes, with or without their quad fits.
 
-``coarse_fit`` launches ``csrc/coarse_fit.cu`` on CUDA tensors and runs
-``plain`` on CPU tensors.  For (B, Hc, Wc) bool coarse masks both return
-``(fit1, fit2, inner_coarse)``: the outer and inner fits as
-``segment.fit_quads`` returns them (quads, valid, roots, centroids, sizes,
-qualifying, each with a leading batch axis), and the dilated footprint of
-the inner label plane, (B, Hc, Wc) bool.  ``fit2`` is None when
-``max_inner_candidates`` is 0.
+Both launch ``csrc/coarse_fit.cu`` on CUDA tensors and run a plain
+version on CPU tensors.  For (B, Hc, Wc) bool coarse masks:
+
+* ``coarse_fit`` (fit mode; plain: ``plain``) returns ``(fit1, fit2,
+  inner_coarse)``: the outer and inner fits as ``segment.fit_quads``
+  returns them (quads, valid, roots, centroids, sizes, qualifying, each
+  with a leading batch axis), and the dilated footprint of the inner label
+  plane, (B, Hc, Wc) bool.  ``fit2`` is None when ``max_inner_candidates``
+  is 0.  Its lanes and rank pool live in shared memory: at most 128 lanes
+  and a pool of 1024.
+* ``coarse_labels`` (labels mode; plain: ``labels_plain``, which is
+  ``segment.label_planes``) returns ``(labels1, labels2)``, (B, Hc, Wc)
+  int32 with sentinel Hc*Wc.
 """
 
 from __future__ import annotations
@@ -15,22 +21,24 @@ import numpy as np
 import torch
 
 from .. import segment
-from . import _build
+from . import Counter, _build
+from .fit import MAX_LANES, MAX_POOL, fit_buffers, fit_ptrs
 
-launches = 0
-plain_calls = 0
-
-# Lane and rank-pool capacities the kernel's shared arrays hold.
-MAX_LANES = 128
-MAX_POOL = 1024
+count = Counter()
+labels_count = Counter()
 
 
 def plain(coarse: torch.Tensor, params: segment.QuadParams, ds: int):
     """``segment.fit_planes`` without the outer label plane."""
-    global plain_calls
-    plain_calls += 1
+    count.plain_calls += 1
     _, fit1, fit2, inner = segment.fit_planes(coarse, params, ds)
     return fit1, fit2, inner
+
+
+def labels_plain(coarse: torch.Tensor, params: segment.QuadParams):
+    """``segment.label_planes``."""
+    labels_count.plain_calls += 1
+    return segment.label_planes(coarse, params)
 
 
 def quad_mismatches(got: dict, ref: dict) -> int:
@@ -49,28 +57,30 @@ def quad_mismatches(got: dict, ref: dict) -> int:
     return int((differs & ((da - db).abs() >= 1e-2)).sum())
 
 
-def _fit_buffers(b: int, k: int, dev):
-    return {
-        "quads": torch.empty((b, k, 4, 2), dtype=torch.float32, device=dev),
-        "valid": torch.empty((b, k), dtype=torch.bool, device=dev),
-        "roots": torch.empty((b, k), dtype=torch.int32, device=dev),
-        "centroids": torch.empty((b, k, 2), dtype=torch.float32, device=dev),
-        "sizes": torch.empty((b, k), dtype=torch.int32, device=dev),
-        "qualifying": torch.empty((b,), dtype=torch.int32, device=dev),
-    }
+def _scratch(b: int, hc: int, wc: int, dev):
+    """Four int32 planes and ten byte planes (rows padded to at most wc + 8
+    bytes; used only when they do not fit in shared memory) per frame."""
+    return (
+        torch.empty((b, 4 * hc * wc), dtype=torch.int32, device=dev),
+        torch.empty((b, 10 * hc * (wc + 8)), dtype=torch.uint8, device=dev),
+    )
 
 
-def _ptrs(fit: dict):
-    return [
-        fit[key].data_ptr()
-        for key in ("quads", "valid", "roots", "centroids", "sizes", "qualifying")
-    ]
+def _rounds(params: segment.QuadParams):
+    return (
+        params.fill_rounds,
+        params.ccl_rounds,
+        params.bg_rounds,
+        params.inner_depths,
+        params.inner_flood_rounds,
+        params.inner_fill_rounds,
+        params.inner_ccl_rounds,
+    )
 
 
 def coarse_fit(coarse: torch.Tensor, params: segment.QuadParams, ds: int):
     """(fit1, fit2, inner_coarse) of (B, Hc, Wc) bool coarse masks; CUDA
     tensors launch the kernel, CPU tensors take ``plain``."""
-    global launches
     if coarse.device.type == "cpu":
         return plain(coarse, params, ds)
     if coarse.ndim != 3:
@@ -87,33 +97,53 @@ def coarse_fit(coarse: torch.Tensor, params: segment.QuadParams, ds: int):
     if max(kr1, kr2) > MAX_POOL:
         raise ValueError(f"rank pool {max(kr1, kr2)} exceeds {MAX_POOL}")
     dev = coarse.device
-    fit1 = _fit_buffers(b, k1, dev)
-    fit2 = _fit_buffers(b, k2, dev)
+    fit1 = fit_buffers(b, k1, dev)
+    fit2 = fit_buffers(b, k2, dev)
     inner = torch.empty((b, hc, wc), dtype=torch.bool, device=dev)
-    scratch_i = torch.empty((b, 4 * p), dtype=torch.int32, device=dev)
-    # Ten byte planes per frame, rows padded to at most wc + 8 bytes (used
-    # only when they do not fit in shared memory).
-    scratch_u8 = torch.empty((b, 10 * hc * (wc + 8)), dtype=torch.uint8, device=dev)
+    scratch_i, scratch_u8 = _scratch(b, hc, wc, dev)
     err = _build.lib().a3_coarse_fit(
         c,
-        *_ptrs(fit1),
-        *_ptrs(fit2),
+        *fit_ptrs(fit1),
+        *fit_ptrs(fit2),
         inner.data_ptr(),
         scratch_i.data_ptr(),
         scratch_u8.data_ptr(),
         b, hc, wc, ds, k1, k2, kr1, kr2,
-        params.fill_rounds,
-        params.ccl_rounds,
-        params.bg_rounds,
-        params.inner_depths,
-        params.inner_flood_rounds,
-        params.inner_fill_rounds,
-        params.inner_ccl_rounds,
+        *_rounds(params),
         float(np.float32(params.containment_slack * ds)),
         float(np.float32(params.min_containment)),
         params.min_component_px,
         _build.stream(),
     )
     _build.check(err, "a3_coarse_fit")
-    launches += 1
+    count.launches += 1
     return fit1, (fit2 if k2 else None), inner
+
+
+def coarse_labels(coarse: torch.Tensor, params: segment.QuadParams):
+    """(labels1, labels2) of (B, Hc, Wc) bool coarse masks; CUDA tensors
+    launch the kernel in labels mode, CPU tensors take ``labels_plain``."""
+    if coarse.device.type == "cpu":
+        return labels_plain(coarse, params)
+    if coarse.ndim != 3:
+        raise ValueError(f"coarse: expected (B, Hc, Wc), got {tuple(coarse.shape)}")
+    c = _build.checked_ptr(coarse, torch.bool, name="coarse")
+    b, hc, wc = coarse.shape
+    dev = coarse.device
+    labels1 = torch.empty((b, hc, wc), dtype=torch.int32, device=dev)
+    labels2 = torch.empty((b, hc, wc), dtype=torch.int32, device=dev)
+    scratch_i, scratch_u8 = _scratch(b, hc, wc, dev)
+    err = _build.lib().a3_coarse_labels(
+        c,
+        labels1.data_ptr(),
+        labels2.data_ptr(),
+        scratch_i.data_ptr(),
+        scratch_u8.data_ptr(),
+        b, hc, wc,
+        int(params.max_inner_candidates > 0),
+        *_rounds(params),
+        _build.stream(),
+    )
+    _build.check(err, "a3_coarse_labels")
+    labels_count.launches += 1
+    return labels1, labels2

@@ -1,0 +1,197 @@
+"""Kernels 5, 6 and 7: the standalone fit of label planes.
+
+Counterpart of ``aruco3_tpu/ops/fit_pallas.py``.  Each wrapper launches
+its kernel from ``csrc/fit.cu`` on CUDA tensors and runs its plain version
+on CPU tensors:
+
+* ``rank_roots`` (kernel 5): the raster rank pool of a label plane
+  (plain: ``segment.rank_pool``);
+* ``fit_lanes`` (kernel 6): the fit chain of selected lanes (plain:
+  ``segment.fit_lanes``);
+* ``fused_fit_batch`` (kernel 7): rank pool, top-k and fit chain of both
+  label planes in one launch (plain: ``fused_fit_plain``), or, when a lane
+  count is above 128, ``fit_quads_batch`` on each plane: kernel 5, a
+  stable top-k in torch, kernel 6.
+
+The fit dicts are those of ``segment.fit_quads``: quads (B, K, 4, 2),
+valid (B, K), roots (B, K), centroids (B, K, 2), sizes (B, K) and
+qualifying (B,).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import segment
+from . import Counter, _build
+
+rank_count = Counter()
+lanes_count = Counter()
+fused_count = Counter()
+
+# Lanes and rank pool that kernel 7 holds in shared memory.
+MAX_LANES = 128
+MAX_POOL = 1024
+
+
+def fit_buffers(b: int, k: int, dev) -> dict:
+    """Uninitialised outputs of one pass's fit, as a kernel writes them."""
+    return {
+        "quads": torch.empty((b, k, 4, 2), dtype=torch.float32, device=dev),
+        "valid": torch.empty((b, k), dtype=torch.bool, device=dev),
+        "roots": torch.empty((b, k), dtype=torch.int32, device=dev),
+        "centroids": torch.empty((b, k, 2), dtype=torch.float32, device=dev),
+        "sizes": torch.empty((b, k), dtype=torch.int32, device=dev),
+        "qualifying": torch.empty((b,), dtype=torch.int32, device=dev),
+    }
+
+
+def fit_ptrs(fit: dict) -> list[int]:
+    return [
+        fit[key].data_ptr()
+        for key in ("quads", "valid", "roots", "centroids", "sizes", "qualifying")
+    ]
+
+
+def _slack(containment_slack: float, ds: int) -> float:
+    return float(np.float32(containment_slack * ds))
+
+
+def _labels_ptr(labels: torch.Tensor, name: str, shape=None):
+    if labels.ndim != 3:
+        raise ValueError(f"{name}: expected (B, Hc, Wc), got {tuple(labels.shape)}")
+    return _build.checked_ptr(labels, torch.int32, shape, name)
+
+
+def rank_roots(labels: torch.Tensor, kr: int, min_px: int):
+    """(roots_r, sizes_r, n_roots) of (B, Hc, Wc) int32 label planes, as
+    ``segment.rank_pool`` returns them.  CUDA tensors launch kernel 5, CPU
+    tensors take the plain version."""
+    if labels.device.type == "cpu":
+        rank_count.plain_calls += 1
+        return segment.rank_pool(labels, kr, min_px)
+    lab = _labels_ptr(labels, "labels")
+    b, hc, wc = labels.shape
+    dev = labels.device
+    roots_r = torch.empty((b, kr), dtype=torch.int32, device=dev)
+    sizes_r = torch.empty((b, kr), dtype=torch.int32, device=dev)
+    n_roots = torch.empty((b,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((b, hc * wc), dtype=torch.int32, device=dev)
+    err = _build.lib().a3_rank_roots(
+        lab, roots_r.data_ptr(), sizes_r.data_ptr(), n_roots.data_ptr(),
+        scratch.data_ptr(), b, hc, wc, kr, int(min_px), _build.stream(),
+    )
+    _build.check(err, "a3_rank_roots")
+    rank_count.launches += 1
+    return roots_r, sizes_r, n_roots
+
+
+def fit_lanes(
+    labels: torch.Tensor,
+    roots: torch.Tensor,
+    sizes: torch.Tensor,
+    use: torch.Tensor,
+    ds: int,
+    containment_slack: float,
+):
+    """(quads, centroids, frac) of the selected lanes, as
+    ``segment.fit_lanes`` returns them (zeros where ``use`` is False).
+    CUDA tensors launch kernel 6, CPU tensors take the plain version."""
+    if labels.device.type == "cpu":
+        lanes_count.plain_calls += 1
+        return segment.fit_lanes(labels, roots, sizes, use, ds, containment_slack)
+    lab = _labels_ptr(labels, "labels")
+    b, hc, wc = labels.shape
+    k = roots.shape[1]
+    dev = labels.device
+    quads = torch.empty((b, k, 4, 2), dtype=torch.float32, device=dev)
+    cents = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
+    frac = torch.empty((b, k), dtype=torch.float32, device=dev)
+    err = _build.lib().a3_fit_lanes(
+        lab,
+        _build.checked_ptr(roots, torch.int32, (b, k), "roots"),
+        _build.checked_ptr(sizes, torch.int32, (b, k), "sizes"),
+        _build.checked_ptr(use, torch.bool, (b, k), "use"),
+        quads.data_ptr(), cents.data_ptr(), frac.data_ptr(),
+        b, hc, wc, k, ds, _slack(containment_slack, ds), _build.stream(),
+    )
+    _build.check(err, "a3_fit_lanes")
+    lanes_count.launches += 1
+    return quads, cents, frac
+
+
+def fit_quads_batch(labels: torch.Tensor, ds: int, params: segment.QuadParams, k: int) -> dict:
+    """``segment.fit_quads`` of (B, Hc, Wc) label planes through kernel 5,
+    a stable top-k (the tie order of ``lax.top_k``) and kernel 6."""
+    p = labels.shape[1] * labels.shape[2]
+    roots_r, sizes_r, n_roots = rank_roots(
+        labels, segment.rank_pool_size(k, p), params.min_component_px
+    )
+    roots, sizes = segment.select_lanes(roots_r, sizes_r, k)
+    use = sizes >= 0
+    quads, cents, frac = fit_lanes(
+        labels, roots.contiguous(), torch.clamp(sizes, min=0).contiguous(),
+        use.contiguous(), ds, params.containment_slack,
+    )
+    return segment.lane_fits(quads, cents, frac, roots, sizes, n_roots, params)
+
+
+def fused_fit_plain(labels1, labels2, ds, params, k1, k2, dup_skip=False):
+    """``segment.fit_quads`` of both planes; with ``dup_skip`` the inner
+    lanes that twin a valid outer lane are not fitted (zero quads,
+    centroids and containment)."""
+    fused_count.plain_calls += 1
+    fit1 = segment.fit_quads(labels1, ds, params, k=k1)
+    if k2 <= 0:
+        return fit1, None
+    fit2 = segment.fit_quads(
+        labels2, ds, params, k=k2, skip_twins_of=fit1 if dup_skip else None
+    )
+    return fit1, fit2
+
+
+def fused_fit_batch(
+    labels1: torch.Tensor,
+    labels2: torch.Tensor | None,
+    ds: int,
+    params: segment.QuadParams,
+    k1: int,
+    k2: int,
+    dup_skip: bool = False,
+):
+    """(fit1, fit2) of the outer and inner label planes (fit2 None when k2
+    is 0).  Lane counts above 128 take ``fit_quads_batch`` on each plane,
+    with no twin skip; otherwise CUDA tensors launch kernel 7 and CPU
+    tensors take ``fused_fit_plain``."""
+    k2 = k2 if labels2 is not None else 0
+    if k1 > MAX_LANES or k2 > MAX_LANES:
+        fit1 = fit_quads_batch(labels1, ds, params, k1)
+        fit2 = fit_quads_batch(labels2, ds, params, k2) if k2 > 0 else None
+        return fit1, fit2
+    if labels1.device.type == "cpu":
+        return fused_fit_plain(labels1, labels2, ds, params, k1, k2, dup_skip)
+    b, hc, wc = labels1.shape
+    p = hc * wc
+    lab1 = _labels_ptr(labels1, "labels1")
+    lab2 = _labels_ptr(labels2, "labels2", (b, hc, wc)) if k2 > 0 else lab1
+    kr1 = segment.rank_pool_size(k1, p)
+    kr2 = segment.rank_pool_size(k2, p) if k2 > 0 else 0
+    if max(kr1, kr2) > MAX_POOL:
+        raise ValueError(f"rank pool {max(kr1, kr2)} exceeds {MAX_POOL}")
+    dev = labels1.device
+    fit1 = fit_buffers(b, k1, dev)
+    fit2 = fit_buffers(b, k2, dev)
+    scratch = torch.empty((b, p), dtype=torch.int32, device=dev)
+    err = _build.lib().a3_fused_fit(
+        lab1, lab2, *fit_ptrs(fit1), *fit_ptrs(fit2), scratch.data_ptr(),
+        b, hc, wc, ds, k1, k2, kr1, kr2,
+        _slack(params.containment_slack, ds),
+        float(np.float32(params.min_containment)),
+        params.min_component_px,
+        int(bool(dup_skip) and k2 > 0),
+        _build.stream(),
+    )
+    _build.check(err, "a3_fused_fit")
+    fused_count.launches += 1
+    return fit1, (fit2 if k2 > 0 else None)

@@ -15,10 +15,9 @@ from __future__ import annotations
 import torch
 
 from .. import frontend, rectify, segment
-from . import _build
+from . import Counter, _build
 
-launches = 0
-plain_calls = 0
+count = Counter()
 
 
 def _shapes(h: int, w: int, ds: int):
@@ -28,8 +27,7 @@ def _shapes(h: int, w: int, ds: int):
 
 def plain(grey: torch.Tensor, window: int, open_radius: int, ds: int):
     """The same three outputs from the ported XLA functions."""
-    global plain_calls
-    plain_calls += 1
+    count.plain_calls += 1
     white = frontend.adaptive_threshold(grey, window)
     opened = segment.open_mask(~white, open_radius)
     return (
@@ -44,7 +42,6 @@ def threshold_open_pool(
 ):
     """(coarse, near, level1) of (B, H, W) uint8 frames; see the module
     docstring.  CUDA tensors launch the kernel, CPU tensors take ``plain``."""
-    global launches
     if grey.device.type == "cpu":
         return plain(grey, window, open_radius, ds)
     if grey.ndim != 3:
@@ -67,5 +64,5 @@ def threshold_open_pool(
         _build.stream(),
     )
     _build.check(err, "a3_frontend")
-    launches += 1
+    count.launches += 1
     return coarse, near, level1

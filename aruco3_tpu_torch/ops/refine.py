@@ -11,16 +11,14 @@ from __future__ import annotations
 import torch
 
 from .. import segment
-from . import _build
+from . import Counter, _build
 
-launches = 0
-plain_calls = 0
+count = Counter()
 
 
 def plain(grey, near, quads, centroids, inner_coarse, is_inner, valid, ds, wn):
     """``segment.refine_windows`` on the valid lanes."""
-    global plain_calls
-    plain_calls += 1
+    count.plain_calls += 1
     refined = segment.refine_windows(
         near, quads, centroids, ds, wn, grey, inner_coarse, is_inner
     )
@@ -42,7 +40,6 @@ def refine_corners(
     centroids (B, K, 2) f32, inner_coarse (B, Hc, Wc) bool, is_inner and
     valid (B, K) bool -> refined quads (B, K, 4, 2).  CUDA tensors launch
     the kernel, CPU tensors take ``plain``."""
-    global launches
     if grey.device.type == "cpu":
         return plain(grey, near, quads, centroids, inner_coarse, is_inner, valid, ds, wn)
     b, h, w = grey.shape
@@ -63,5 +60,5 @@ def refine_corners(
         _build.stream(),
     )
     _build.check(err, "a3_refine")
-    launches += 1
+    count.launches += 1
     return out

@@ -15,16 +15,14 @@ from __future__ import annotations
 import torch
 
 from .. import rectify
-from . import _build
+from . import Counter, _build
 
-launches = 0
-plain_calls = 0
+count = Counter()
 
 
 def plain(grey, uppers, H, lvl, tlx, tly, valid, patch_size, mark_size):
     """``rectify.warp_samples`` + ``rectify.otsu_cells``."""
-    global plain_calls
-    plain_calls += 1
+    count.plain_calls += 1
     b, k = lvl.shape
     s = patch_size
     samples = rectify.warp_samples(grey, uppers, H, lvl, tlx, tly, s)
@@ -51,7 +49,6 @@ def warp_decode(
     from ``rectify.warp_windows``; valid (B, K) bool.  Returns (samples,
     levels, grids); CUDA tensors launch the kernel, CPU tensors take
     ``plain``."""
-    global launches
     if grey.device.type == "cpu":
         return plain(grey, uppers, H, lvl, tlx, tly, valid, patch_size, mark_size)
     b, h, w = grey.shape
@@ -87,5 +84,5 @@ def warp_decode(
         _build.stream(),
     )
     _build.check(err, "a3_warp_decode")
-    launches += 1
+    count.launches += 1
     return samples, levels, grids

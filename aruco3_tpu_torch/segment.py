@@ -7,10 +7,11 @@ function; here the batch axis is written out).  ``jax.lax.fori_loop``
 becomes a Python loop; the round counts are the same, so the floods and
 the labelling are the same round-limited algorithm, not a converged one.
 
-The on-card path replaces ``label_planes`` + ``fit_quads`` with the coarse
-kernel (``ops.coarse_fit``) and the window search of ``refine_corners``
-with the refine kernel (``ops.refine``); both are held bit-equal to the
-functions here.
+On the card, ``label_planes`` is kernel 2 (``ops.coarse_fit``, labels
+mode, or fit mode together with ``fit_quads``), ``rank_pool`` and
+``fit_lanes`` are kernels 5 and 6 and the fit of both planes kernel 7
+(``ops.fit``), and the window search of ``refine_corners`` is kernel 3
+(``ops.refine``); each is held bit-equal to the functions here.
 """
 
 from __future__ import annotations
@@ -308,25 +309,24 @@ def _stable_topk_desc(values: torch.Tensor, k: int) -> torch.Tensor:
     ]
 
 
-def fit_quads(
-    labels: torch.Tensor, ds: int, params: QuadParams, k: int | None = None
-):
-    """Top-K components of (B, Hc, Wc) label planes -> fitted quads.
+def rank_pool(labels: torch.Tensor, kr: int, min_px: int):
+    """The raster rank pool of (B, Hc, Wc) label planes (plain version of
+    kernel 5, ``ops.fit.rank_roots``).
 
-    Returns a dict with leading axis B: quads (K, 4, 2) f32 full-res
-    (x, y); valid (K,) bool; roots (K,) int32; centroids (K, 2) f32;
-    sizes (K,) int32; qualifying () int32.
+    A root is a cell that holds its own index and passes the admission
+    pre-filter (same-label count at ``ADMIT_OFFSETS``, wrapping around the
+    grid).  Returns roots_r (B, kr) int32, the root of raster rank j (0
+    after the last); sizes_r (B, kr) int32, its member count (-1 after the
+    last); n_roots (B,) int32, the number of admitted roots.
     """
     bsz, hc, wc = labels.shape
     dev = labels.device
     p = hc * wc
-    k = params.max_candidates if k is None else k
-    kr = rank_pool_size(k, p)
     flat = labels.reshape(bsz, p)
     idx = torch.arange(p, dtype=torch.int32, device=dev)
 
     is_root = flat == idx
-    t = min(int(params.min_component_px), 3)
+    t = min(int(min_px), 3)
     if t > 1:
         cnt = torch.zeros_like(labels)
         for dy, dx in ADMIT_OFFSETS[t]:
@@ -349,14 +349,38 @@ def fit_quads(
         1, flat.to(torch.int64), torch.ones_like(flat, dtype=torch.int32)
     )
     sizes_r = torch.where(used_r, counts.gather(1, roots_r), -1)
-    sel = _stable_topk_desc(sizes_r, k)
-    sizes = sizes_r.gather(1, sel)
-    roots = roots_r.gather(1, sel).to(torch.int32)
-    lane_used = sizes >= 0
+    return roots_r.to(torch.int32), sizes_r, n_roots
 
-    member = (flat[:, None, :] == roots[:, :, None]) & lane_used[:, :, None]
-    sizes = torch.clamp(sizes, min=0)
-    valid = sizes >= params.min_component_px
+
+def select_lanes(roots_r: torch.Tensor, sizes_r: torch.Tensor, k: int):
+    """Top-k of a rank pool by size, equal sizes in pool order (which is
+    root order): (roots, sizes) (B, k) int32, size -1 on unused lanes."""
+    sel = _stable_topk_desc(sizes_r, k)
+    return roots_r.gather(1, sel), sizes_r.gather(1, sel)
+
+
+def fit_lanes(
+    labels: torch.Tensor,
+    roots: torch.Tensor,
+    sizes: torch.Tensor,
+    use: torch.Tensor,
+    ds: int,
+    containment_slack: float,
+):
+    """The per-lane fit chain (plain version of kernel 6,
+    ``ops.fit.fit_lanes``).
+
+    labels (B, Hc, Wc) int32; roots, sizes (B, K) int32 (sizes >= 0); use
+    (B, K) bool.  Returns quads (B, K, 4, 2) f32 full-res (x, y), centroids
+    (B, K, 2) f32 and the containment fraction frac (B, K) f32; lanes not
+    in ``use`` come back as zeros.
+    """
+    bsz, hc, wc = labels.shape
+    dev = labels.device
+    p = hc * wc
+    flat = labels.reshape(bsz, p)
+    idx = torch.arange(p, dtype=torch.int32, device=dev)
+    member = (flat[:, None, :] == roots[:, :, None]) & use[:, :, None]
 
     cy = (idx // wc).to(torch.float32) * ds + (ds - 1) * 0.5
     cx = (idx % wc).to(torch.float32) * ds + (ds - 1) * 0.5
@@ -395,7 +419,7 @@ def fit_quads(
     )  # (B, K, 4, 2)
 
     # Containment in the expanded per-edge form of the JAX package.
-    slack = params.containment_slack * ds
+    slack = containment_slack * ds
     e_from = quads
     e_to = torch.roll(quads, -1, dims=-2)
     ex = e_to[..., 0] - e_from[..., 0]  # (B, K, 4)
@@ -414,16 +438,68 @@ def fit_quads(
         inside = cmp if inside is None else inside & cmp
     one = torch.ones((), dtype=torch.float32, device=dev)
     frac = torch.where(member & inside, one, zero).sum(dim=-1) / szf
-    valid = valid & (frac >= params.min_containment)
+    quads = torch.where(use[..., None, None], quads, zero)
+    return quads, torch.stack([cenx, ceny], dim=-1), frac
 
+
+def twin_lanes(fit: dict, roots: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """(B, K) lanes whose (root, size) equal those of a valid lane of
+    ``fit``: the same cell set, which ``merge_fits`` drops as a twin."""
+    return (
+        (roots[:, :, None] == fit["roots"][:, None, :])
+        & (sizes[:, :, None] == fit["sizes"][:, None, :])
+        & fit["valid"][:, None, :]
+    ).any(dim=-1)
+
+
+def lane_fits(quads, centroids, frac, roots, sizes, n_roots, params: QuadParams):
+    """The fit dict of selected lanes (sizes -1 on unused lanes)."""
+    sizes_pos = torch.clamp(sizes, min=0)
+    valid = (
+        (sizes >= 0)
+        & (sizes_pos >= params.min_component_px)
+        & (frac >= params.min_containment)
+    )
     return {
         "quads": quads,
         "valid": valid,
         "roots": roots,
-        "centroids": torch.stack([cenx, ceny], dim=-1),
-        "sizes": sizes,
+        "centroids": centroids,
+        "sizes": sizes_pos,
         "qualifying": n_roots,
     }
+
+
+def fit_quads(
+    labels: torch.Tensor,
+    ds: int,
+    params: QuadParams,
+    k: int | None = None,
+    skip_twins_of: dict | None = None,
+):
+    """Top-K components of (B, Hc, Wc) label planes -> fitted quads.
+
+    Returns a dict with leading axis B: quads (K, 4, 2) f32 full-res
+    (x, y); valid (K,) bool; roots (K,) int32; centroids (K, 2) f32;
+    sizes (K,) int32; qualifying () int32.  Unused lanes have zero quads.
+    ``skip_twins_of``: a fit whose valid lanes' twins (``twin_lanes``) are
+    not fitted and come back as zeros, as the fused fit kernel's dup skip
+    leaves them.
+    """
+    p = labels.shape[-2] * labels.shape[-1]
+    k = params.max_candidates if k is None else k
+    roots_r, sizes_r, n_roots = rank_pool(
+        labels, rank_pool_size(k, p), params.min_component_px
+    )
+    roots, sizes = select_lanes(roots_r, sizes_r, k)
+    use = sizes >= 0
+    sizes_pos = torch.clamp(sizes, min=0)
+    if skip_twins_of is not None:
+        use = use & ~twin_lanes(skip_twins_of, roots, sizes_pos)
+    quads, centroids, frac = fit_lanes(
+        labels, roots, sizes_pos, use, ds, params.containment_slack
+    )
+    return lane_fits(quads, centroids, frac, roots, sizes, n_roots, params)
 
 
 def inner_footprint(labels2: torch.Tensor) -> torch.Tensor:
@@ -618,12 +694,8 @@ def merge_fits(fit: dict, fit2: dict | None, params: QuadParams, ds: int):
         )
         best = dist if best is None else torch.minimum(best, dist)
     dup = (best <= INNER_DUP_CHEBYSHEV_DS * ds) & fit["valid"][:, None, :]
-    twin = (
-        (fit2["roots"][:, :, None] == fit["roots"][:, None, :])
-        & (fit2["sizes"][:, :, None] == fit["sizes"][:, None, :])
-        & fit["valid"][:, None, :]
-    )
-    valid2 = fit2["valid"] & ~(dup | twin).any(dim=-1)
+    twin = twin_lanes(fit, fit2["roots"], fit2["sizes"])
+    valid2 = fit2["valid"] & ~(dup.any(dim=-1) | twin)
 
     quads_c = torch.cat([fit["quads"], fit2["quads"]], dim=1)
     valid_c = torch.cat([fit["valid"], valid2], dim=1)

@@ -3,23 +3,54 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line of numbers:
+Three paths, each ``Detector.detect_batch`` + ``pose.solve_normalized_batch``:
+
+* landscape: the 8-marker 1080p bench frame (1080x1920 u8,
+  ``ARUCO_MIP_36H12``, ``DetectorConfig()``): ds 10, a 108x192 grid, the
+  fused route (kernel 2 in fit mode);
+* portrait (A): the same frame turned a quarter (1920x1080): a 192x108
+  grid outside the fused envelope, so the label route through kernel 2's
+  labels mode and kernel 7;
+* dense (B): a 14x9 board of 126 ``APRILTAG_36H11`` tags at 230 px on a
+  4K frame (2160x3840) with the ``4k-dense-grid`` preset at 160 lanes:
+  ds 20, a 108x192 grid, the label route through kernels 5 and 6.
+
+Phases, each printing lines of numbers:
 
 1. device: the card (``nvidia-smi`` name and power limit) and versions;
    fails without CUDA;
-2. build: compiles the four kernels from ``aruco3_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (4 frames of 1080p, ds 10, each kernel fed the
-   previous kernel's real outputs); raises if a contract is broken;
-4. main path: ``Detector.detect_batch`` + ``pose.solve_normalized_batch``
-   on 16 copies of the 8-marker 1080p bench scene; every marker must be
-   found within 2 px with a finite pose, every kernel launched and no
-   plain version called;
-5. timing: detect + pose at batch 128 in frames/s, and each kernel against
-   its plain version (CUDA events, after warm-up).
+2. build: compiles the kernels of ``aruco3_tpu_torch/csrc``, one ``nvcc``
+   per source, all at once;
+3. kernels: each kernel of each path against its plain PyTorch version on
+   the card, at the path's shapes (4 frames; 2 for dense), each kernel fed
+   the previous kernel's real outputs; raises if a contract is broken;
+4. paths: each path driven once, every launch count set to 0 just before
+   and read just after: every kernel of the path launched, no other and no
+   plain version called.  Landscape and portrait on 16 frames: every
+   ground-truth marker within 2 px with a finite pose.  Dense on 4 frames:
+   frame 0 equal to the port's CPU path (ids, codes, rounded corners,
+   stats);
+5. timing: detect + pose in frames/s (landscape and portrait at batch 128,
+   dense at 16) with the device time per batch by kernel
+   (``torch.profiler``) beside it, each kernel against its plain version
+   at its path's phase-3 shapes (CUDA events, after warm-up), and on the
+   portrait coarse planes at batch 128 the fused kernel 2 against labels
+   mode + kernel 7.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Imports no JAX.
+
+Each kernel's ``bound_ms`` is the larger of its bytes over 3.35 TB/s and
+its operations over 67 T/s (the H100's non-tensor float32 peak; integer
+and boolean work is counted against it too, which only lowers the bound).
+Bytes: each input the function needs read once, each output written once;
+the window kernels (refine, warp_decode) count only the windows of valid
+lanes.  Operations, per element, from this run's data: frontend 31 per
+pixel; coarse labelling 12 per cell per flood or CCL round (peel depths
+after the first not counted); rank pool 10 per cell; fit chain 40 per
+member cell of each fitted lane plus one per cell to find the members;
+refine 8 per window pixel; warp 20 per sample plus 2,560 per lane for
+Otsu.
 """
 
 from __future__ import annotations
@@ -31,16 +62,31 @@ import time
 
 import numpy as np
 
-FRAME_HW = (1080, 1920)
+LANDSCAPE_HW = (1080, 1920)
 DICT_NAME = "ARUCO_MIP_36H12"
+DENSE_HW = (2160, 3840)
 MARKER_MM = 40.0
-KERNELS = [
-    # name, CUDA source, TPU kernel it replaces
-    ("frontend", "aruco3_tpu_torch/csrc/frontend.cu", "aruco3_tpu/ops/frontend_pallas.py:294"),
-    ("coarse_fit", "aruco3_tpu_torch/csrc/coarse_fit.cu", "aruco3_tpu/ops/coarse_pallas.py:872"),
-    ("refine", "aruco3_tpu_torch/csrc/refine.cu", "aruco3_tpu/ops/refine_pallas.py:47"),
-    ("warp_decode", "aruco3_tpu_torch/csrc/warp_decode.cu", "aruco3_tpu/ops/warp_gather.py:53"),
-]
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# name -> (CUDA source, TPU kernel it replaces, path whose shapes its row reports)
+KERNELS = {
+    "frontend": ("aruco3_tpu_torch/csrc/frontend.cu",
+                 "aruco3_tpu/ops/frontend_pallas.py:294", "landscape"),
+    "coarse_fit": ("aruco3_tpu_torch/csrc/coarse_fit.cu",
+                   "aruco3_tpu/ops/coarse_pallas.py:872", "landscape"),
+    "coarse_labels": ("aruco3_tpu_torch/csrc/coarse_fit.cu",
+                      "aruco3_tpu/ops/coarse_pallas.py:872", "portrait"),
+    "fused_fit": ("aruco3_tpu_torch/csrc/fit.cu",
+                  "aruco3_tpu/ops/fit_pallas.py:445", "portrait"),
+    "rank_roots": ("aruco3_tpu_torch/csrc/fit.cu",
+                   "aruco3_tpu/ops/fit_pallas.py:271", "dense"),
+    "fit_lanes": ("aruco3_tpu_torch/csrc/fit.cu",
+                  "aruco3_tpu/ops/fit_pallas.py:331", "dense"),
+    "refine": ("aruco3_tpu_torch/csrc/refine.cu",
+               "aruco3_tpu/ops/refine_pallas.py:47", "landscape"),
+    "warp_decode": ("aruco3_tpu_torch/csrc/warp_decode.cu",
+                    "aruco3_tpu/ops/warp_gather.py:53", "landscape"),
+}
 
 
 def log(phase: str, **nums) -> None:
@@ -80,23 +126,123 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def nbytes(*objs) -> int:
+    """Bytes of the tensors in ``objs`` (tensors, dicts, tuples, lists)."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if torch.is_tensor(o):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+    return total
+
+
+def grid_frame(d, h, w, cell, rng, n_cols, n_rows):
+    """ChArUco-style dense grid of markers, each rendered on its own tile
+    (the board of the JAX package's ``benches/bench_configs.py``).  Returns
+    the frame and [(id, corners (4, 2))]."""
+    from aruco3_tpu_torch.render import render_marker
+
+    img = np.full((h, w), 255, dtype=np.uint8)
+    side = int(cell * 0.8)
+    quad = np.array(
+        [[2.0, 2.0], [2.0 + side, 2.0], [2.0 + side, 2.0 + side], [2.0, 2.0 + side]]
+    )
+    tile = side + 4
+    truth = []
+    for r in range(n_rows):
+        for c in range(n_cols):
+            mid = (r * n_cols + c) % len(d)
+            x0 = 40 + c * cell
+            y0 = 40 + r * cell
+            if x0 + tile >= w or y0 + tile >= h:
+                continue
+            sub = render_marker(d, mid, (tile, tile), quad, noise_sigma=0.0)
+            img[y0 : y0 + tile, x0 : x0 + tile] = np.minimum(
+                img[y0 : y0 + tile, x0 : x0 + tile], sub
+            )
+            truth.append((mid, quad + [x0, y0]))
+    img = np.clip(
+        img.astype(np.float64) + rng.normal(0, 2.0, img.shape), 0, 255
+    ).astype(np.uint8)
+    return img, truth
+
+
+def counters():
+    """name -> Counter of every kernel wrapper."""
+    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine, warp_decode
+
+    return {
+        "frontend": frontend.count,
+        "coarse_fit": coarse_fit.count,
+        "coarse_labels": coarse_fit.labels_count,
+        "fused_fit": fit.fused_count,
+        "rank_roots": fit.rank_count,
+        "fit_lanes": fit.lanes_count,
+        "refine": refine.count,
+        "warp_decode": warp_decode.count,
+    }
+
+
+def wrappers():
+    """name -> (kernel wrapper, plain version on the same arguments)."""
+    from aruco3_tpu_torch import segment
+    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine, warp_decode
+
+    return {
+        "frontend": (frontend.threshold_open_pool, frontend.plain),
+        "coarse_fit": (coarse_fit.coarse_fit, coarse_fit.plain),
+        "coarse_labels": (coarse_fit.coarse_labels, coarse_fit.labels_plain),
+        "fused_fit": (fit.fused_fit_batch, fit.fused_fit_plain),
+        "rank_roots": (fit.rank_roots, segment.rank_pool),
+        "fit_lanes": (fit.fit_lanes, segment.fit_lanes),
+        "refine": (refine.refine_corners, refine.plain),
+        "warp_decode": (warp_decode.warp_decode, warp_decode.plain),
+    }
+
+
 def stage_inputs(frames, det):
-    """The main path's intermediate tensors for ``frames`` (kernel route)."""
-    from aruco3_tpu_torch import rectify, segment
-    from aruco3_tpu_torch.ops import coarse_fit, frontend, refine
+    """The path's intermediate tensors for ``frames``: name -> the
+    arguments each kernel of the path gets (on the detector's route)."""
+    import torch
+
+    from aruco3_tpu_torch import detector, rectify, segment
+    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine
 
     params, min_edge, min_sep, ds = det.geometry(*frames.shape[1:])
     wn = segment.refine_window_size(params, ds)
-    coarse, near, level1 = frontend.threshold_open_pool(
-        frames, det.config.threshold_window, params.open_radius, ds
-    )
-    fit1, fit2, ic = coarse_fit.coarse_fit(coarse, params, ds)
+    args = {"frontend": (frames, det.config.threshold_window, params.open_radius, ds)}
+    coarse, near, level1 = frontend.threshold_open_pool(*args["frontend"])
+    k1, k2 = params.max_candidates, params.max_inner_candidates
+    if detector.fit_route(coarse.shape[1], coarse.shape[2], k1, k2) == "fused":
+        args["coarse_fit"] = (coarse, params, ds)
+        fit1, fit2, ic = coarse_fit.coarse_fit(*args["coarse_fit"])
+    else:
+        args["coarse_labels"] = (coarse, params)
+        l1, l2 = coarse_fit.coarse_labels(*args["coarse_labels"])
+        if max(k1, k2) > fit.MAX_LANES:
+            kr = segment.rank_pool_size(k1, l1.shape[1] * l1.shape[2])
+            args["rank_roots"] = (l1, kr, params.min_component_px)
+            roots_r, sizes_r, _ = fit.rank_roots(*args["rank_roots"])
+            roots, sizes = segment.select_lanes(roots_r, sizes_r, k1)
+            args["fit_lanes"] = (
+                l1, roots.contiguous(), sizes.clamp(min=0).contiguous(),
+                (sizes >= 0).contiguous(), ds, params.containment_slack,
+            )
+        else:
+            args["fused_fit"] = (l1, l2, ds, params, k1, k2, True)
+        fit1, fit2 = fit.fused_fit_batch(l1, l2, ds, params, k1, k2, dup_skip=True)
+        ic = segment.inner_footprint(l2) if k2 > 0 else torch.zeros_like(coarse)
     cand = segment.merge_fits(fit1, fit2, params, ds)
-    refine_args = (
+    args["refine"] = (
         frames, near, cand["quads"].contiguous(), cand["centroids"], ic,
         cand["is_inner"].contiguous(), cand["valid"].contiguous(), ds, wn,
     )
-    quads = refine.refine_corners(*refine_args)
+    quads = refine.refine_corners(*args["refine"])
     quads, valid, _ = segment.finalize_quads(
         quads, cand["valid"], cand["sizes"], cand["overflow"], params, min_edge, min_sep
     )
@@ -105,69 +251,149 @@ def stage_inputs(frames, det):
     h, w = frames.shape[1:]
     shapes = rectify.pyramid_level_shapes(h, w, rectify.num_levels(h, w))
     lvl, tlx, tly = rectify.warp_windows(quads, shapes)
-    warp_args = (
+    args["warp_decode"] = (
         frames, rectify.upper_levels(level1, shapes), H.contiguous(), lvl, tlx, tly,
         valid & h_valid, s, det.dictionary.get_mark_size(),
     )
-    frontend_args = (frames, det.config.threshold_window, params.open_radius, ds)
-    return {
-        "frontend": frontend_args,
-        "coarse_fit": (coarse, params, ds),
-        "refine": refine_args,
-        "warp_decode": warp_args,
-    }
+    return args
 
 
-def compare_kernels(args) -> dict:
-    """Phase 3: each kernel against its plain version; returns the max
-    absolute error of each, raising on a broken contract."""
+def fit_counts(g, r, tag=""):
+    """Mismatch counts of two fit dicts and their centroid error."""
+    from aruco3_tpu_torch.ops import coarse_fit
+
+    counts = {}
+    for key in ("roots", "sizes", "qualifying", "valid"):
+        counts[f"{tag}{key}"] = mismatches(g[key], r[key].to(g[key].dtype))
+    counts[f"{tag}quads_non_tie"] = coarse_fit.quad_mismatches(g, r)
+    return counts, float((g["centroids"] - r["centroids"]).abs().max())
+
+
+def compare(name, args, got, ref):
+    """(mismatch counts, max abs error) of a kernel's outputs against its
+    plain version's, by the kernel's contract."""
+    from aruco3_tpu_torch.ops import coarse_fit
+
+    if name == "frontend":
+        counts = {f"{k}_mismatch": mismatches(a, b)
+                  for k, a, b in zip(("coarse", "near", "level1"), got, ref)}
+        return counts, float((got[2] - ref[2]).abs().max())
+    if name in ("coarse_labels", "rank_roots"):
+        keys = ("labels1", "labels2") if name == "coarse_labels" else ("roots", "sizes", "n_roots")
+        return {f"{k}_mismatch": mismatches(a, b) for k, a, b in zip(keys, got, ref)}, 0.0
+    if name in ("coarse_fit", "fused_fit"):
+        counts, err = fit_counts(got[0], ref[0], "outer_")
+        if got[1] is not None:
+            c2, e2 = fit_counts(got[1], ref[1], "inner_")
+            counts.update(c2)
+            err = max(err, e2)
+        if name == "coarse_fit":
+            counts["inner_coarse"] = mismatches(got[2], ref[2])
+        return counts, err
+    if name == "fit_lanes":
+        counts = {
+            "frac_mismatch": mismatches(got[2], ref[2]),
+            "quads_non_tie": coarse_fit.quad_mismatches(
+                {"quads": got[0]}, {"quads": ref[0], "centroids": ref[1], "sizes": args[2]}
+            ),
+        }
+        return counts, float((got[1] - ref[1]).abs().max())
+    if name == "refine":
+        valid = args[6]
+        err = float((got[valid] - ref[valid]).abs().max()) if valid.any() else 0.0
+        return {"corner_mismatch": mismatches(got[valid], ref[valid])}, err
+    if name == "warp_decode":
+        valid = args[6]
+        counts = {"otsu_mismatch": mismatches(got[1][valid], ref[1][valid]),
+                  "grid_mismatch": mismatches(got[2][valid], ref[2][valid])}
+        return counts, float((got[0] - ref[0]).abs().max())
+    raise KeyError(name)
+
+
+def compare_kernels(path, args, params) -> dict:
+    """Phase 3: each kernel of the path against its plain version; returns
+    name -> (max abs error, bytes, operations), raising on a broken
+    contract.  Where the path takes kernels 5 and 6, also the whole split
+    fit (kernel 5, top-k, kernel 6) against ``segment.fit_quads``."""
     import torch
 
-    from aruco3_tpu_torch.ops import coarse_fit, frontend, refine, warp_decode
+    from aruco3_tpu_torch import segment
+    from aruco3_tpu_torch.ops import fit
 
-    errs = {}
-    got = frontend.threshold_open_pool(*args["frontend"])
-    ref = frontend.plain(*args["frontend"])
-    mis = [mismatches(a, b) for a, b in zip(got, ref)]
-    log("kernel frontend", coarse_mismatch=mis[0], near_mismatch=mis[1], level1_mismatch=mis[2])
-    require(sum(mis) == 0, "frontend: outputs differ from the plain version")
-    errs["frontend"] = float((got[2] - ref[2]).abs().max())
-
-    (g1, g2, gic) = coarse_fit.coarse_fit(*args["coarse_fit"])
-    (r1, r2, ric) = coarse_fit.plain(*args["coarse_fit"])
-    counts = {"inner_coarse": mismatches(gic, ric)}
-    cen_err = 0.0
-    for tag, g, r in (("outer", g1, r1), ("inner", g2, r2)):
-        for key in ("roots", "sizes", "qualifying", "valid"):
-            counts[f"{tag}_{key}"] = mismatches(g[key], r[key].to(g[key].dtype))
-        counts[f"{tag}_quads_non_tie"] = coarse_fit.quad_mismatches(g, r)
-        cen_err = max(cen_err, float((g["centroids"] - r["centroids"]).abs().max()))
-    log("kernel coarse_fit", centroid_max_abs_err=cen_err, **counts)
-    require(sum(counts.values()) == 0, "coarse_fit: outputs differ from the plain version")
-    require(cen_err <= 1e-3, "coarse_fit: centroids differ by more than 1e-3 px")
-    errs["coarse_fit"] = cen_err
-
-    valid = args["refine"][6]
-    got = refine.refine_corners(*args["refine"])
-    ref = refine.plain(*args["refine"])
-    mis = mismatches(got[valid], ref[valid])
-    log("kernel refine", valid_lanes=int(valid.sum()), corner_mismatch=mis)
-    require(mis == 0, "refine: refined corners differ on valid lanes")
-    errs["refine"] = float((got[valid] - ref[valid]).abs().max()) if valid.any() else 0.0
-
-    valid = args["warp_decode"][6]
-    gs, gl, gg = warp_decode.warp_decode(*args["warp_decode"])
-    rs, rl, rg = warp_decode.plain(*args["warp_decode"])
-    err = float((gs - rs).abs().max())
-    lm = mismatches(gl[valid], rl[valid])
-    gm = mismatches(gg[valid], rg[valid])
-    log("kernel warp_decode", valid_lanes=int(valid.sum()), sample_max_abs_err=err,
-        otsu_mismatch=lm, grid_mismatch=gm)
-    require(err <= 1e-3, "warp_decode: samples differ by more than 1e-3 grey")
-    require(lm == 0 and gm == 0, "warp_decode: Otsu levels or cell grids differ")
-    errs["warp_decode"] = err
+    out = {}
+    if "fit_lanes" in args:
+        lab, _, sizes, _, ds, _ = args["fit_lanes"]
+        k = sizes.shape[1]
+        counts, err = fit_counts(fit.fit_quads_batch(lab, ds, params, k),
+                                 segment.fit_quads(lab, ds, params, k))
+        log("kernel fit_quads_batch", path=path, centroid_max_abs_err=err, **counts)
+        require(sum(counts.values()) == 0 and err <= 1e-3,
+                f"fit_quads_batch ({path}): outputs differ from segment.fit_quads")
+    table = wrappers()
+    for name, a in args.items():
+        kernel, plain = table[name]
+        got = kernel(*a)
+        ref = plain(*a)
+        counts, err = compare(name, a, got, ref)
+        counts.pop("valid_lanes_x", None)
+        log(f"kernel {name}", path=path, max_abs_err=err, **counts)
+        require(sum(counts.values()) == 0, f"{name} ({path}): outputs differ from the plain version")
+        limit = 1e-3 if name != "frontend" else 0.0
+        require(err <= limit, f"{name} ({path}): max abs error {err} above {limit}")
+        out[name] = (err, *work(name, a, got))
     torch.cuda.synchronize()
-    return errs
+    return out
+
+
+def label_rounds(params) -> int:
+    """Flood and CCL rounds of the labelling, peel depths after the first
+    not counted."""
+    outer = params.fill_rounds + params.ccl_rounds
+    if params.max_inner_candidates <= 0:
+        return outer
+    return outer + params.bg_rounds + params.fill_rounds + 2 * params.inner_flood_rounds + params.ccl_rounds
+
+
+def fit_ops(fit: dict, cells: int) -> int:
+    """Rank pool and chain operations of one fitted plane (lanes with a
+    nonzero centroid were fitted)."""
+    fitted = (fit["centroids"] != 0).any(dim=-1)
+    return 11 * cells + 40 * int(fit["sizes"][fitted].sum())
+
+
+def work(name, args, got):
+    """(bytes, operations) the kernel's function needs on these inputs."""
+    if name == "frontend":
+        return nbytes(args[0], got), 31 * args[0].numel()
+    if name in ("coarse_fit", "coarse_labels"):
+        coarse, params = args[0], args[1]
+        ops = 12 * label_rounds(params) * coarse.numel()
+        if name == "coarse_fit":
+            ops += sum(fit_ops(f, coarse.numel()) for f in got[:2] if f is not None)
+        return nbytes(coarse, got), ops
+    if name == "fused_fit":
+        planes = [args[0]] + ([args[1]] if got[1] is not None else [])
+        return nbytes(planes, got[:2]), sum(fit_ops(f, args[0].numel()) for f in got[:2] if f is not None)
+    if name == "rank_roots":
+        return nbytes(args[0], got), 10 * args[0].numel()
+    if name == "fit_lanes":
+        lab, roots, sizes, use = args[:4]
+        return nbytes(lab, roots, sizes, use, got), lab.numel() + 40 * int(sizes[use].sum())
+    if name == "refine":
+        valid, wn = args[6], args[8]
+        nv = int(valid.sum())
+        return nbytes(args[2:7], got) + nv * 4 * wn * wn * 2, nv * 4 * wn * wn * 8
+    if name == "warp_decode":
+        valid, s = args[6], args[7]
+        nv = int(valid.sum())
+        return nbytes(args[2:7], got) + nv * s * s, nv * (20 * s * s + 2560)
+    raise KeyError(name)
+
+
+def bound(bytes_: int, ops: int):
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def detect_and_pose(det, frames):
@@ -182,7 +408,7 @@ def detect_and_pose(det, frames):
     return out, rot, tr, err
 
 
-def check_main_path(out, tr, truth) -> float:
+def check_markers(out, tr, truth) -> float:
     """Every ground-truth marker in every frame within 2 px (cyclic), with
     a finite pose; returns the worst corner error."""
     valid = out["marker_valid"].cpu().numpy()
@@ -203,6 +429,77 @@ def check_main_path(out, tr, truth) -> float:
     return worst
 
 
+def drive(path, det, frames, kernels_of_path):
+    """Phase 4: one run of the path with every count set to 0 just before
+    and read just after; returns (out, tr, launches)."""
+    import torch
+
+    counts = counters()
+    for c in counts.values():
+        c.reset()
+    out, _, tr, _ = detect_and_pose(det, frames)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counts.items()}
+    plains = {name: c.plain_calls for name, c in counts.items()}
+    log(f"path {path} counts", **{f"launches_{k}": v for k, v in launches.items()},
+        **{f"plain_calls_{k}": v for k, v in plains.items()})
+    for name, n in launches.items():
+        if name in kernels_of_path:
+            require(n > 0, f"{path}: kernel {name} was not launched")
+        else:
+            require(n == 0, f"{path}: kernel {name} is not on this path but was launched")
+    require(all(v == 0 for v in plains.values()), f"{path}: a plain version ran")
+    return out, tr, launches
+
+
+def profile_path(path, det, frames, ms_per_batch, reps=3) -> None:
+    """Device time per batch by kernel (torch.profiler over ``reps``
+    batches after warm-up) against the CUDA-event time per batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    detect_and_pose(det, frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            detect_and_pose(det, frames)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / reps
+    log("profile", path=path, batch=frames.shape[0], device_ms_per_batch=round(device_ms, 3),
+        ms_per_batch=round(ms_per_batch, 3),
+        device_idle_share=round(1.0 - device_ms / ms_per_batch, 3),
+        device_ops_per_batch=round(sum(e.count for e in dev) / reps, 1))
+    by_name = {}
+    for e in dev:  # names cut to 60 characters; templated ones share a prefix
+        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + e.self_device_time_total / 1e3 / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
+    print(json.dumps({"profile_top": path,
+                      "device_ms_per_batch": {k: round(v, 4) for k, v in top}}), flush=True)
+
+
+def route_timing(det, frames, card) -> None:
+    """On the portrait coarse planes: the fused kernel 2 (fit mode) against
+    the label route's labels mode + kernel 7 (the route is not switched)."""
+    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend
+
+    params, _, _, ds = det.geometry(*frames.shape[1:])
+    k1, k2 = params.max_candidates, params.max_inner_candidates
+    coarse = frontend.threshold_open_pool(frames, det.config.threshold_window,
+                                          params.open_radius, ds)[0]
+    fused_ms = cuda_ms(lambda: coarse_fit.coarse_fit(coarse, params, ds), reps=10)
+    labels = coarse_fit.coarse_labels(coarse, params)
+    labels_ms = cuda_ms(lambda: coarse_fit.coarse_labels(coarse, params), reps=10)
+    fit_ms = cuda_ms(lambda: fit.fused_fit_batch(*labels, ds, params, k1, k2, dup_skip=True),
+                     reps=10)
+    route_ms = cuda_ms(lambda: fit.fused_fit_batch(*coarse_fit.coarse_labels(coarse, params),
+                                                   ds, params, k1, k2, dup_skip=True), reps=10)
+    log("timing route", path="portrait", card=repr(card), batch=coarse.shape[0],
+        grid=f"{coarse.shape[1]}x{coarse.shape[2]}", fused_kernel2_ms=round(fused_ms, 4),
+        coarse_labels_ms=round(labels_ms, 4), fused_fit_ms=round(fit_ms, 4),
+        label_route_ms=round(route_ms, 4))
+
+
 def main() -> int:
     import torch
 
@@ -214,63 +511,110 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from dataclasses import replace
+
     from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig, render
-    from aruco3_tpu_torch.ops import _build, coarse_fit, frontend, refine, warp_decode
+    from aruco3_tpu_torch.detector import to_host
+    from aruco3_tpu_torch.models import presets
+    from aruco3_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.lib()
     log("build", seconds=round(time.perf_counter() - t0, 3), library=_build.library_path().name)
 
+    # The three paths' detectors and frames.
     dictionary = ARDictionary.new_from_named_dict(DICT_NAME)
     det = Detector(DetectorConfig(), dictionary, device="cuda")
-    h, w = FRAME_HW
+    h, w = LANDSCAPE_HW
     scene, truth = render.bench_scene(dictionary, (w, h), seed=0, noise_sigma=2.0)
-    four = np.stack(
-        [scene] + [render.bench_scene(dictionary, (w, h), seed=s)[0] for s in (1, 2, 3)]
-    )
-    args = stage_inputs(torch.from_numpy(four).cuda(), det)
-    errs = compare_kernels(args)
+    extra = [render.bench_scene(dictionary, (w, h), seed=s)[0] for s in (1, 2, 3)]
+    portrait = np.ascontiguousarray(np.rot90(scene))
+    # np.rot90 turns the frame a quarter counter-clockwise: (x, y) -> (y, W-1-x).
+    truth_p = [(mid, np.stack([c[:, 1], (w - 1) - c[:, 0]], axis=-1)) for mid, c in truth]
+    pre = presets.get_preset("4k-dense-grid")
+    dense_cfg = replace(pre.config, max_candidates=160)
+    dense_dict = ARDictionary.new_from_named_dict(pre.dictionary)
+    det_dense = Detector(dense_cfg, dense_dict, device="cuda")
+    dh, dw = DENSE_HW
+    boards = [grid_frame(dense_dict, dh, dw, 230, np.random.default_rng(s), 14, 9)
+              for s in range(2)]
+    dense_truth = boards[0][1]
 
-    # name -> (module, kernel wrapper); each module also has `plain`.
-    kernels = {
-        "frontend": (frontend, frontend.threshold_open_pool),
-        "coarse_fit": (coarse_fit, coarse_fit.coarse_fit),
-        "refine": (refine, refine.refine_corners),
-        "warp_decode": (warp_decode, warp_decode.warp_decode),
+    paths = {
+        "landscape": (det, np.stack([scene] + extra)),
+        "portrait": (det, np.stack([portrait] + [np.ascontiguousarray(np.rot90(e))
+                                                 for e in extra])),
+        "dense": (det_dense, np.stack([b[0] for b in boards])),
     }
-    frames16 = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(scene, (16, h, w)))).cuda()
-    for mod, _ in kernels.values():
-        mod.launches = 0
-        mod.plain_calls = 0
-    out, rot, tr, perr = detect_and_pose(det, frames16)
-    torch.cuda.synchronize()
-    launches = {name: mod.launches for name, (mod, _) in kernels.items()}
-    plains = {name: mod.plain_calls for name, (mod, _) in kernels.items()}
-    worst = check_main_path(out, tr, truth)
-    log("main path", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
-        worst_corner_err_px=round(worst, 3),
-        **{f"launches_{k}": v for k, v in launches.items()},
-        **{f"plain_calls_{k}": v for k, v in plains.items()})
-    require(all(v > 0 for v in launches.values()), "a kernel of the path was not launched")
-    require(all(v == 0 for v in plains.values()), "a plain version ran on the main path")
+    phase3 = {}
+    args_of = {}
+    for path, (d, frames) in paths.items():
+        args = stage_inputs(torch.from_numpy(frames).cuda(), d)
+        args_of[path] = args
+        phase3[path] = compare_kernels(path, args, d.geometry(*frames.shape[1:])[0])
 
-    frames128 = torch.from_numpy(
-        np.ascontiguousarray(np.broadcast_to(scene, (128, h, w)))
-    ).cuda()
-    ms = cuda_ms(lambda: detect_and_pose(det, frames128), reps=5)
-    log("timing", card=repr(card), batch=128, ms_per_batch=round(ms, 3),
-        frames_per_s=round(128 * 1000.0 / ms, 1))
+    # Phase 4: each path with its own counts.
+    launches_of = {}
+    t16 = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(scene, (16, h, w)))).cuda()
+    out, tr, launches_of["landscape"] = drive("landscape", det, t16, set(args_of["landscape"]))
+    worst = check_markers(out, tr, truth)
+    log("path landscape", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
+        worst_corner_err_px=round(worst, 3))
+    p16 = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(portrait, (16, w, h)))).cuda()
+    out, tr, launches_of["portrait"] = drive("portrait", det, p16, set(args_of["portrait"]))
+    worst_p = check_markers(out, tr, truth_p)
+    log("path portrait", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
+        worst_corner_err_px=round(worst_p, 3))
+    del t16, p16
+    d4 = torch.from_numpy(np.stack([b[0] for b in boards] * 2)).cuda()
+    out, tr, launches_of["dense"] = drive("dense", det_dense, d4, set(args_of["dense"]))
+    got0 = to_host(out, 0)
+    t_cpu = time.perf_counter()
+    ref0 = Detector(dense_cfg, dense_dict, device="cpu").detect(boards[0][0])
+    cpu_s = time.perf_counter() - t_cpu
+
+    def summary(det_):
+        return sorted((m.id, m.code, tuple(m.corners)) for m in det_.markers)
+
+    found = {m.id for m in got0.markers} & {mid for mid, _ in dense_truth}
+    log("path dense", frames=4, tags_found=len(found), tags_on_board=len(dense_truth),
+        markers_frame0=len(got0.markers), cpu_reference_s=round(cpu_s, 3),
+        candidates_equal_cpu=got0.candidates == ref0.candidates)
+    require(summary(got0) == summary(ref0), "dense: frame 0 markers differ from the CPU path")
+    require(got0.stats == ref0.stats, "dense: frame 0 stats differ from the CPU path")
+    require(bool(torch.isfinite(tr[0][out["marker_valid"][0]]).all()), "dense: non-finite pose")
+    del d4
+
+    # Phase 5: throughput, kernel against plain version, route comparison.
+    for path, (d, frames), batch in (("landscape", paths["landscape"], 128),
+                                     ("portrait", paths["portrait"], 128),
+                                     ("dense", paths["dense"], 16)):
+        big = torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(frames[0], (batch,) + frames.shape[1:])
+        )).cuda()
+        ms = cuda_ms(lambda: detect_and_pose(d, big), reps=5 if batch > 16 else 3)
+        log("timing", path=path, card=repr(card), batch=batch, ms_per_batch=round(ms, 3),
+            frames_per_s=round(batch * 1000.0 / ms, 1))
+        profile_path(path, d, big, ms)
+        if path == "portrait":
+            route_timing(d, big, card)
+        del big
+
+    table = wrappers()
     rows = []
-    for name, source, replaces in KERNELS:
-        mod, kernel = kernels[name]
-        a = args[name]
+    for name, (source, replaces, path) in KERNELS.items():
+        kernel, plain = table[name]
+        a = args_of[path][name]
         k_ms = cuda_ms(lambda: kernel(*a), reps=10)
-        p_ms = cuda_ms(lambda: mod.plain(*a), reps=2)
-        log(f"timing {name}", card=repr(card), batch=4, kernel_ms=round(k_ms, 4),
-            plain_ms=round(p_ms, 4))
+        p_ms = cuda_ms(lambda: plain(*a), reps=2)
+        err, bytes_, ops = phase3[path][name]
+        b_ms, b_by = bound(bytes_, ops)
+        log(f"timing {name}", path=path, card=repr(card), batch=int(a[0].shape[0]), kernel_ms=round(k_ms, 4),
+            plain_ms=round(p_ms, 4), bound_ms=round(b_ms, 5), bound_by=b_by, bytes=bytes_, ops=ops)
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": errs[name],
-                     "ms": k_ms, "plain_ms": p_ms})
+                     "launches": launches_of[path][name], "max_abs_err": err,
+                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None, "path": path})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,7 +46,7 @@ def detectors():
     jcfg = JDetectorConfig(use_pallas="never")
     ds = jsegment.choose_coarse_factor(H, W)
     d, cfg, _ = convert.from_jax_state(jax_state(jd, jcfg, jsegment.QuadParams()))
-    return JDetector(jcfg, jd), Detector(cfg, d), ds
+    return JDetector(jcfg, jd), Detector(cfg, d, device="cpu"), ds
 
 
 def summary(det):
@@ -175,6 +175,44 @@ def test_port_imports_without_jax():
         "aruco3_tpu_torch.ops._build, aruco3_tpu_torch.render; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'aruco3_tpu' not in sys.modules, 'aruco3_tpu imported'"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_codebooks_are_a_copy_of_the_jax_data():
+    """The port keeps its own codebook file, equal byte for byte."""
+    with open(os.path.join(REPO, "aruco3_tpu", "data", "codebooks.npz"), "rb") as f:
+        ref = f.read()
+    with open(dictionaries._DATA_PATH, "rb") as f:
+        assert f.read() == ref
+    assert os.path.dirname(dictionaries._DATA_PATH) == os.path.join(REPO, "aruco3_tpu_torch", "data")
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """Import the port, load every dictionary and detect a frame on the CPU
+    (both routes) while an audit hook records every file opened."""
+    code = (
+        "import os, sys\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda ev, args: opened.append(str(args[0])) "
+        "if ev == 'open' and isinstance(args[0], (str, bytes, os.PathLike)) else None)\n"
+        "import numpy as np\n"
+        "from aruco3_tpu_torch import Detector, DetectorConfig, dictionaries, render\n"
+        "for name in dictionaries.get_dictionary_names():\n"
+        "    dictionaries.ARDictionary.new_from_named_dict(name)\n"
+        "d = dictionaries.ARDictionary.new_from_named_dict('ARUCO_DEFAULT')\n"
+        "img, _, _ = render.random_marker_scene(d, 3, (160, 120), rng=np.random.default_rng(0))\n"
+        "Detector(DetectorConfig(), d, device='cpu').detect(img)\n"
+        "Detector(DetectorConfig(max_candidates=130), d, device='cpu').detect(img)\n"
+        "jax_dir = os.path.join(os.getcwd(), 'aruco3_tpu') + os.sep\n"
+        "bad = [p for p in opened if os.path.abspath(p).startswith(jax_dir)]\n"
+        "assert not bad, bad\n"
+        "assert any(p.endswith('codebooks.npz') for p in opened)\n"
+        "assert 'jax' not in sys.modules and 'aruco3_tpu' not in sys.modules\n"
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     proc = subprocess.run(

@@ -1,0 +1,105 @@
+"""Twin tests of kernels 5, 6 and 7 through their plain versions
+(``aruco3_tpu_torch.ops.fit`` on CPU tensors) against the JAX fit kernels
+of ``aruco3_tpu/ops/fit_pallas.py`` in interpret mode.
+
+The label planes are the port's ``segment.label_planes`` of seeded random
+masks (``tests/test_torch_segment.py`` holds them bit-equal to the JAX
+planes); both sides fit the same planes.  Integer fields are bit-exact,
+quads tie-equivalent, centroids within 1e-4 px (float32 sums of
+multiples of 0.5, exact in any order at these sizes).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aruco3_tpu import segment as jsegment
+from aruco3_tpu.ops import fit_pallas
+from aruco3_tpu_torch import segment
+from aruco3_tpu_torch.ops import fit
+from torch_twin import assert_quads_tie_equivalent, n
+
+P = segment.QuadParams()
+JP = jsegment.QuadParams()
+DS = 6
+
+
+def planes(shape, density, seed=41):
+    rng = np.random.default_rng(seed)
+    c = torch.from_numpy(rng.random((3,) + shape) < density)
+    return segment.label_planes(c, P)
+
+
+def assert_fit_matches(got, ref):
+    for key in ("valid", "sizes", "qualifying", "roots"):
+        np.testing.assert_array_equal(n(got[key]), np.asarray(ref[key]), err_msg=key)
+    np.testing.assert_allclose(n(got["centroids"]), np.asarray(ref["centroids"]), atol=1e-4)
+    assert_quads_tie_equivalent(got["quads"], ref["quads"], ref["centroids"], ref["sizes"])
+
+
+@pytest.mark.parametrize(
+    "shape,density,k",
+    [
+        ((40, 54), 0.35, 32),
+        ((60, 80), 0.45, 96),  # pool above 128 entries
+        ((40, 54), 0.35, 160),  # more than 128 lanes
+        ((40, 300), 0.35, 300),  # wide plane, pool of 1,200
+    ],
+)
+def test_split_fit_plain_matches_jax(shape, density, k):
+    """Kernel 5's plain version against rank_roots_kernel, kernel 6's
+    against fit_lanes_kernel, and fit_quads_batch against the JAX one."""
+    lab, _ = planes(shape, density)
+    jlab = jnp.asarray(n(lab))
+    kr = segment.rank_pool_size(k, shape[0] * shape[1])
+    got = fit.rank_roots(lab, kr, P.min_component_px)
+    ref = fit_pallas.rank_roots_kernel(jlab, kr, JP.min_component_px, interpret=True)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(n(a), np.asarray(b))
+
+    roots, sizes = segment.select_lanes(got[0], got[1], k)
+    use = sizes >= 0
+    sizes_pos = torch.clamp(sizes, min=0)
+    gq, gc, gf = fit.fit_lanes(lab, roots, sizes_pos, use, DS, P.containment_slack)
+    rq, rc, rf = fit_pallas.fit_lanes_kernel(
+        jlab, jnp.asarray(n(roots)), jnp.asarray(n(sizes_pos)), jnp.asarray(n(use)),
+        DS, JP.containment_slack, interpret=True,
+    )
+    np.testing.assert_array_equal(n(gf), np.asarray(rf))
+    np.testing.assert_allclose(n(gc), np.asarray(rc), atol=1e-4)
+    assert_quads_tie_equivalent(gq, rq, rc, sizes_pos)
+
+    assert_fit_matches(
+        fit.fit_quads_batch(lab, DS, P, k),
+        fit_pallas.fit_quads_batch(jlab, DS, JP, k, interpret=True),
+    )
+
+
+@pytest.mark.parametrize(
+    "shape,density,k1,k2,dup_skip",
+    [
+        ((40, 54), 0.35, 32, 12, True),
+        ((40, 54), 0.6, 32, 12, False),  # dense: many equal sizes
+        ((80, 54), 0.45, 32, 0, False),  # outer plane only
+        ((40, 300), 0.35, 16, 8, True),  # wide plane
+        ((40, 54), 0.35, 160, 12, True),  # above 128 lanes: kernels 5 and 6
+    ],
+)
+def test_fused_fit_plain_matches_jax(shape, density, k1, k2, dup_skip):
+    """Kernel 7's plain version (or the split route above 128 lanes)
+    against fused_fit_batch, twin skip included."""
+    l1, l2 = planes(shape, density)
+    got = fit.fused_fit_batch(l1, l2, DS, P, k1, k2, dup_skip=dup_skip)
+    ref = fit_pallas.fused_fit_batch(
+        jnp.asarray(n(l1)), jnp.asarray(n(l2)) if k2 else None, DS, JP, k1, k2,
+        dup_skip=dup_skip, interpret=True,
+    )
+    assert (got[1] is None) == (ref[1] is None) == (k2 == 0)
+    assert_fit_matches(got[0], ref[0])
+    if k2:
+        assert_fit_matches(got[1], ref[1])
+    if dup_skip and max(k1, k2) <= fit.MAX_LANES:
+        # Twin lanes were selected but not fitted: zero centroids.
+        skipped = (got[1]["sizes"] > 0) & (got[1]["centroids"] == 0).all(-1)
+        assert bool(skipped.any())

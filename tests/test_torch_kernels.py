@@ -1,4 +1,4 @@
-"""The port's four CUDA kernels against their plain PyTorch versions.
+"""The port's CUDA kernels against their plain PyTorch versions.
 
 The ``gpu`` tests need the card and skip elsewhere.  This file imports no
 JAX, so it runs on a machine that has only PyTorch:
@@ -15,6 +15,7 @@ import torch
 
 from aruco3_tpu_torch import Detector, DetectorConfig, dictionaries, rectify, segment
 from aruco3_tpu_torch.ops import coarse_fit as k2
+from aruco3_tpu_torch.ops import fit as kfit
 from aruco3_tpu_torch.ops import frontend as k1
 from aruco3_tpu_torch.ops import refine as k3
 from aruco3_tpu_torch.ops import warp_decode as k4
@@ -22,17 +23,46 @@ from torch_twin import cuda_device, make_scene, n, noisy_blocks, random_quads
 
 P = segment.QuadParams()
 S = 49
+COUNTS = {
+    "frontend": k1.count,
+    "coarse_fit": k2.count,
+    "coarse_labels": k2.labels_count,
+    "rank_roots": kfit.rank_count,
+    "fit_lanes": kfit.lanes_count,
+    "fused_fit": kfit.fused_count,
+    "refine": k3.count,
+    "warp_decode": k4.count,
+}
+
+
+def _detect_counts(img, cfg=DetectorConfig()):
+    """Detect ``img`` on the CPU; (launches, plain calls) of every wrapper."""
+    for c in COUNTS.values():
+        c.reset()
+    d = dictionaries.ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
+    Detector(cfg, d, device="cpu").detect(img)
+    return {name: (c.launches, c.plain_calls) for name, c in COUNTS.items()}
 
 
 def test_wrappers_take_plain_version_on_cpu():
     """A CPU tensor runs the plain version and launches nothing."""
-    for mod in (k1, k2, k3, k4):
-        mod.launches = mod.plain_calls = 0
-    img, _ = make_scene("dark")
-    det = Detector(DetectorConfig(), dictionaries.ARDictionary.new_from_named_dict("ARUCO_DEFAULT"))
-    det.detect(img)
-    for mod in (k1, k2, k3, k4):
-        assert (mod.launches, mod.plain_calls) == (0, 1), mod.__name__
+    got = _detect_counts(make_scene("dark")[0])
+    ran = {"frontend", "coarse_fit", "refine", "warp_decode"}
+    assert got == {name: (0, int(name in ran)) for name in COUNTS}
+
+
+def test_label_route_takes_plain_versions_on_cpu():
+    """A portrait grid outside the fused envelope takes the label route:
+    labels mode, then kernel 7's plain version; above 128 lanes kernels 5
+    and 6 once per plane."""
+    img = np.ascontiguousarray(np.rot90(make_scene("dark")[0]))
+    got = _detect_counts(img, DetectorConfig(coarse_factor=2))
+    ran = {"frontend", "coarse_labels", "fused_fit", "refine", "warp_decode"}
+    assert got == {name: (0, int(name in ran)) for name in COUNTS}
+    got = _detect_counts(make_scene("dark")[0], DetectorConfig(max_candidates=160))
+    ran = {"frontend": 1, "coarse_labels": 1, "rank_roots": 2, "fit_lanes": 2,
+           "refine": 1, "warp_decode": 1}
+    assert got == {name: (0, ran.get(name, 0)) for name in COUNTS}
 
 
 @pytest.mark.gpu
@@ -124,7 +154,7 @@ def test_detect_on_card_matches_cpu(kind):
     d = dictionaries.ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
     img, ids = make_scene(kind)
     got = Detector(DetectorConfig(), d, device=dev).detect(img)
-    ref = Detector(DetectorConfig(), d).detect(img)
+    ref = Detector(DetectorConfig(), d, device="cpu").detect(img)
     assert ids <= {m.id for m in got.markers}
     assert sorted((m.id, m.code, tuple(m.corners)) for m in got.markers) == sorted(
         (m.id, m.code, tuple(m.corners)) for m in ref.markers
@@ -133,3 +163,94 @@ def test_detect_on_card_matches_cpu(kind):
     assert got.stats == ref.stats
     np.testing.assert_array_equal(np.stack(got.homographies), np.stack(ref.homographies))
     assert n(torch.as_tensor(got.grey)).shape == img.shape[:2]
+
+
+def _label_planes(shape, density, seed):
+    rng = np.random.default_rng(seed)
+    c = torch.from_numpy(rng.random((2,) + shape) < density)
+    return c, segment.label_planes(c, P)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(40, 54), (192, 108), (108, 192), (150, 200)])
+def test_coarse_labels_kernel_matches_plain(shape):
+    """Labels mode; the last shape's planes exceed shared memory."""
+    dev = cuda_device()
+    c, (r1, r2) = _label_planes(shape, 0.35, 31)
+    g1, g2 = k2.coarse_labels(c.to(dev), P)
+    assert torch.equal(g1.cpu(), r1) and torch.equal(g2.cpu(), r2)
+    no_inner = segment.QuadParams(max_inner_candidates=0)
+    g1, g2 = k2.coarse_labels(c.to(dev), no_inner)
+    assert torch.equal(g1.cpu(), r1) and bool((g2 == shape[0] * shape[1]).all())
+
+
+def _assert_fit_equal(got, ref):
+    for key in ("valid", "sizes", "qualifying", "roots"):
+        assert torch.equal(got[key].cpu(), ref[key].cpu().to(got[key].dtype)), key
+    assert (got["centroids"].cpu() - ref["centroids"].cpu()).abs().max() <= 1e-3
+    assert k2.quad_mismatches(got, ref) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,k", [((40, 54), 32), ((192, 108), 96), ((108, 192), 160), ((108, 192), 300)]
+)
+def test_rank_and_lane_kernels_match_plain(shape, k):
+    dev = cuda_device()
+    _, (lab, _) = _label_planes(shape, 0.3, 32)
+    lab = lab.to(dev)
+    kr = segment.rank_pool_size(k, shape[0] * shape[1])
+    got = kfit.rank_roots(lab, kr, P.min_component_px)
+    ref = segment.rank_pool(lab, kr, P.min_component_px)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    roots, sizes = segment.select_lanes(*ref[:2], k)
+    use = sizes >= 0
+    use[:, 1] = False  # a hole among the used lanes
+    args = (lab, roots.contiguous(), sizes.clamp(min=0).contiguous(), use.contiguous(), 10,
+            P.containment_slack)
+    gq, gc, gf = kfit.fit_lanes(*args)
+    rq, rc, rf = segment.fit_lanes(*args)
+    assert torch.equal(gf, rf)
+    assert (gc - rc).abs().max() <= 1e-3
+    assert k2.quad_mismatches({"quads": gq}, {"quads": rq, "centroids": rc, "sizes": args[2]}) == 0
+    _assert_fit_equal(kfit.fit_quads_batch(lab, 10, P, k), segment.fit_quads(lab, 10, P, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,k1,k2,dup_skip", [
+    ((40, 54), 32, 12, True), ((192, 108), 32, 12, True), ((192, 108), 32, 12, False),
+    ((108, 192), 32, 0, False),
+])
+def test_fused_fit_kernel_matches_plain(shape, k1, k2, dup_skip):
+    dev = cuda_device()
+    _, (l1, l2) = _label_planes(shape, 0.35, 33)
+    l1, l2 = l1.to(dev), l2.to(dev)
+    got = kfit.fused_fit_batch(l1, l2, 10, P, k1, k2, dup_skip=dup_skip)
+    ref = kfit.fused_fit_plain(l1, l2, 10, P, k1, k2, dup_skip=dup_skip)
+    _assert_fit_equal(got[0], ref[0])
+    assert (got[1] is None) == (ref[1] is None) == (k2 == 0)
+    if k2:
+        _assert_fit_equal(got[1], ref[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["multi", "dark", "nested"])
+def test_portrait_detect_on_card_matches_cpu(kind):
+    """A 240-wide, 320-high frame at coarse factor 2 takes the label route."""
+    dev = cuda_device()
+    d = dictionaries.ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
+    img, ids = make_scene(kind)
+    img = np.ascontiguousarray(np.rot90(img))
+    cfg = DetectorConfig(coarse_factor=2)
+    k2.labels_count.reset()
+    kfit.fused_count.reset()
+    got = Detector(cfg, d, device=dev).detect(img)
+    assert (k2.labels_count.launches, kfit.fused_count.launches) == (1, 1)
+    ref = Detector(cfg, d, device="cpu").detect(img)
+    assert ids <= {m.id for m in got.markers}
+    assert sorted((m.id, m.code, tuple(m.corners)) for m in got.markers) == sorted(
+        (m.id, m.code, tuple(m.corners)) for m in ref.markers
+    )
+    assert got.candidates == ref.candidates
+    assert got.stats == ref.stats
