@@ -2,7 +2,7 @@
 
 ArUco/AprilTag fiducial detection and IPPE pose estimation on PyTorch
 tensors: the same pipeline, dictionaries and pose solve as the JAX
-package, with its four TPU kernels rewritten as CUDA C++ kernels for
+package, with its eight TPU kernels rewritten as CUDA C++ kernels for
 Hopper (``ops``).  On CUDA tensors the detector launches the kernels; on
 CPU tensors it runs their plain PyTorch versions.  Imports no JAX.
 """

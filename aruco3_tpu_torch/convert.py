@@ -4,8 +4,10 @@ The detector has no weights: its state is the marker dictionary and the
 static configuration.  ``from_jax_state`` takes them as a dict of numpy
 arrays and scalars (``name``, ``num_bits``, ``tau``, ``code_list`` as
 uint64, and the fields of the JAX ``DetectorConfig`` and ``QuadParams``)
-and returns the port's objects.  Fields the port does not have (the JAX
-package's kernel-route switches) are ignored.
+and returns the port's objects, ``warp_impl`` (the tail route's warp)
+included.  The one field the port does not have, ``use_pallas`` (the
+JAX package's choice between its Pallas kernels and XLA), is ignored: on
+the card the port always launches its kernels.
 """
 
 from __future__ import annotations

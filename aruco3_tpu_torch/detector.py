@@ -2,7 +2,10 @@
 ``aruco3_tpu/detector.py``.
 
 ``detect_batch_arrays`` runs the stages of the JAX package's batched
-kernel route on a (B, H, W[, C]) uint8 tensor:
+detector on a (B, H, W[, C]) uint8 tensor, on one of its two routes
+(``tail_route`` picks):
+
+Refine route (corner refinement on and ds > 1; the JAX Pallas route):
 
 1. luma (torch)
 2. kernel 1 ``ops.frontend``: threshold, opening, pooling, near mask,
@@ -22,9 +25,19 @@ kernel route on a (B, H, W[, C]) uint8 tensor:
 9. kernel 4 ``ops.warp_decode``: warp, Otsu, Triangle resize, cell grid
 10. grid tail and dictionary match (torch)
 
+Tail route (no refinement, or ds == 1; the JAX ``_detect_tail``):
+
+1. luma, kernel 1 as above
+2. kernel 2 in labels mode, then ``ops.fit.fused_fit_batch`` (kernel 7,
+   or kernels 5 and 6), ``segment.merge_fits``, ``segment.finalize_quads``
+3. ``decode_tail``: homography; the pyramid warp (window slices in torch,
+   kernel 8 ``ops.warp_eval``), or the gather warp where
+   ``warp_impl="gather"``; Otsu, Triangle resize and cell grid (torch);
+   grid tail and dictionary match
+
 On a CUDA tensor every kernel stage launches its hand-written kernel; on a
 CPU tensor the same function runs each kernel's plain PyTorch version.
-The warp samples with float32 weights where the JAX XLA warp rounds them
+The warps sample with float32 weights where the JAX XLA warp rounds them
 to bfloat16.
 """
 
@@ -59,6 +72,9 @@ class DetectorConfig:
     coarse_factor: int | None = None  # None = auto from image size
     ccl_rounds: int = 3
     refine_corners: bool = True
+    # Warp of the tail route: "mxu" (pyramid windows + kernel 8) or
+    # "gather" (the oracle).  The refine route always warps with kernel 4.
+    warp_impl: str = "mxu"
 
 
 @dataclass
@@ -136,6 +152,15 @@ def fit_route(hc: int, wc: int, k1: int, k2: int) -> str:
     exact = wc <= 255 and rp <= 256 and rp * cp <= 128 * 256
     fits_vmem = rp <= 512 and rp * cp * 4 * (12 + _chain_levels(rp, cp)) <= 48 * 1024 * 1024
     return "fused" if exact and fits_vmem and k1 <= 128 and k2 <= 128 else "labels"
+
+
+def tail_route(params: segment.QuadParams, ds: int) -> bool:
+    """True where the JAX detector decodes through ``_detect_tail``: its
+    Pallas route needs corner refinement and a coarse factor above 1
+    (``pallas_refine``, ``detector.py:252``).  Without refinement, or at
+    ds 1 (frames whose long side is at most 192 px), it fits through the
+    label planes and warps with ``warp_patches_mxu``."""
+    return not (params.refine and ds > 1)
 
 
 class Detector:
@@ -235,18 +260,20 @@ def detect_batch_arrays(
         grey, cfg.threshold_window, params.open_radius, ds
     )
     k1, k2 = params.max_candidates, params.max_inner_candidates
-    if fit_route(coarse.shape[1], coarse.shape[2], k1, k2) == "fused":
+    tail = tail_route(params, ds)
+    inner_coarse = None
+    if not tail and fit_route(coarse.shape[1], coarse.shape[2], k1, k2) == "fused":
         fit1, fit2, inner_coarse = coarse_fit(coarse, params, ds)
     else:
         labels1, labels2 = coarse_labels(coarse, params)
         fit1, fit2 = fused_fit_batch(labels1, labels2, ds, params, k1, k2, dup_skip=True)
-        if k2 > 0:
-            inner_coarse = segment.inner_footprint(labels2)
-        else:
-            inner_coarse = torch.zeros_like(coarse)
     cand = segment.merge_fits(fit1, fit2, params, ds)
     quads = cand["quads"]
-    if params.refine and ds > 1:
+    if not tail:
+        if inner_coarse is None:  # label route: only refinement reads it
+            inner_coarse = (
+                segment.inner_footprint(labels2) if k2 > 0 else torch.zeros_like(coarse)
+            )
         quads = refine_corners(
             grey,
             near,
@@ -261,6 +288,10 @@ def detect_batch_arrays(
     quads, valid, stats = segment.finalize_quads(
         quads, cand["valid"], cand["sizes"], cand["overflow"], params, min_edge, min_sep
     )
+    if tail:
+        out = decode_tail(grey, level1, quads, valid, stats, dictionary, cfg)
+        out["grey"] = grey
+        return out
 
     s = cfg.homography_sample_size
     H, h_valid = rectify.homography_square_to_quad(quads, s)
@@ -274,6 +305,24 @@ def detect_batch_arrays(
     out = match_tail(quads, valid, h_valid, grids, stats, dictionary, cfg)
     out["patches"] = patches
     out["grey"] = grey
+    return out
+
+
+def decode_tail(grey, level1, quads, quad_valid, stats, dictionary, cfg):
+    """Homography, warp, cell grids and match of every lane (``_decode_tail``
+    of the JAX package), batched: the pyramid warp
+    (``rectify.warp_patches_mxu``, kernel 8) or, with ``warp_impl="gather"``,
+    the gather warp; then ``rectify.otsu_cells`` and ``match_tail``."""
+    s = cfg.homography_sample_size
+    b, k = quad_valid.shape
+    H, h_valid = rectify.homography_square_to_quad(quads, s)
+    if cfg.warp_impl == "gather":
+        patches = rectify.warp_patches(grey, H, s)
+    else:
+        patches = rectify.warp_patches_mxu(grey, level1, H, quads, s)
+    _, grids = rectify.otsu_cells(patches.reshape(b * k, s, s), dictionary.get_mark_size())
+    out = match_tail(quads, quad_valid, h_valid, grids, stats, dictionary, cfg)
+    out["patches"] = patches
     return out
 
 

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version:
 ``frontend`` (kernel 1), ``coarse_fit`` (kernel 2, fit and labels modes),
-``refine`` (kernel 3), ``warp_decode`` (kernel 4) and ``fit`` (kernels 5-7).
+``refine`` (kernel 3), ``warp_decode`` (kernel 4), ``fit`` (kernels 5-7)
+and ``warp_eval`` (kernel 8).
 
 Every kernel wrapper owns a ``Counter``: ``launches`` goes up by one where
 the wrapper launches its kernel and nowhere else, ``plain_calls`` where it

@@ -52,6 +52,7 @@ SIGNATURES = {
     "a3_fused_fit": [_PTR] * 15 + [_INT] * 8 + [_FLT, _FLT, _INT, _INT, _PTR],
     "a3_refine": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     "a3_warp_decode": [_PTR] * 12 + [_INT] * 6 + [_PTR],
+    "a3_warp_eval": [_PTR] * 4 + [_INT] * 2 + [_PTR],
 }
 
 _lib = None

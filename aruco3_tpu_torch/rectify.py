@@ -197,6 +197,20 @@ def sample_coords(H: torch.Tensor, patch_size: int):
     return sxh / wsafe, syh / wsafe, bad
 
 
+def window_coords(sx, sy, lvl, tlx, tly):
+    """Window-space coordinates (ux, uy) of image-space samples (sx, sy)
+    (..., S*S) in each lane's window: ``(s + 0.5) / 2^l - 0.5 - tl``, as
+    the JAX package's ``_warp_setup`` computes them under ``jit``.  At
+    level 0 XLA folds ``(s + 0.5) / 1 - 0.5`` to ``s`` (the compiled
+    program computes ``s - tl``), so level 0 samples at the image
+    coordinates themselves, as the gather warp does."""
+    scale = torch.pow(2.0, lvl.to(torch.float32))[..., None]
+    at0 = (lvl == 0)[..., None]
+    ux = torch.where(at0, sx, (sx + 0.5) / scale - 0.5) - tlx[..., None].to(torch.float32)
+    uy = torch.where(at0, sy, (sy + 0.5) / scale - 0.5) - tly[..., None].to(torch.float32)
+    return ux, uy
+
+
 def _taps(u: torch.Tensor):
     """Bilinear taps of window coordinate u: the two columns floor(u) and
     floor(u) + 1, their weights max(0, 1 - |u - j|), and whether each lies
@@ -227,12 +241,7 @@ def warp_samples(
     """
     bsz, k = lvl.shape
     sx, sy, bad = sample_coords(H, patch_size)
-    scale = torch.pow(2.0, lvl.to(torch.float32))[..., None]
-    # Level 0 samples at the image coordinates themselves, so its samples
-    # are the gather warp's: (s + 0.5) / 1 - 0.5 would round s by an ulp.
-    at0 = (lvl == 0)[..., None]
-    ux = torch.where(at0, sx, (sx + 0.5) / scale - 0.5) - tlx[..., None].to(torch.float32)
-    uy = torch.where(at0, sy, (sy + 0.5) / scale - 0.5) - tly[..., None].to(torch.float32)
+    ux, uy = window_coords(sx, sy, lvl, tlx, tly)
     x0, x1, wx0, wx1, inx0, inx1 = _taps(ux)
     y0, y1, wy0, wy1, iny0, iny1 = _taps(uy)
 
@@ -265,6 +274,98 @@ def warp_samples(
         v = wy0 * top + wy1 * bot
         vals = torch.where(sel[..., None], v, vals)
     return torch.where(bad, 0.0, vals)
+
+
+# --------------------------------------------------------------------------
+# Warp of the detector's tail route: window slices, then kernel 8
+# --------------------------------------------------------------------------
+def _window_slices(planes, lvl, tlx, tly) -> torch.Tensor:
+    """(B, K, 64, 64) float32: each lane's window of the plane of its level.
+    Every window lies inside its padded level (``warp_windows`` clips it)."""
+    ar = torch.arange(WARP_WIN, device=lvl.device)
+    rows = (tly[..., None] + ar)[..., :, None]
+    cols = (tlx[..., None] + ar)[..., None, :]
+    bi = torch.arange(lvl.shape[0], device=lvl.device).reshape(-1, 1, 1, 1)
+    out = None
+    for level, plane in enumerate(planes):
+        ph, pw = plane.shape[-2], plane.shape[-1]
+        # Lanes of other levels read a clamped window that is not kept.
+        win = plane[bi, rows.clamp(max=ph - 1), cols.clamp(max=pw - 1)].to(torch.float32)
+        out = win if out is None else torch.where((lvl == level)[..., None, None], win, out)
+    return out
+
+
+def warp_setup(grey: torch.Tensor, level1: torch.Tensor, H: torch.Tensor, quads: torch.Tensor,
+               patch_size: int):
+    """Windows and window-space sample coordinates of each lane; the
+    counterpart of the JAX package's ``rectify._warp_setup``.
+
+    grey (B, H, W) u8; level1 (B, ph0/2, pw0/2) f32, the frontend's
+    unpadded pyramid level 1; H (B, K, 3, 3); quads (B, K, 4, 2).  Returns
+    (windows (B, K, 64, 64) f32, ux, uy (B, K, S*S) f32, bad (B, K, S*S)
+    bool), the coordinates from ``window_coords``.  Each window is sliced
+    from the plane of its
+    level (level 0 is the frame, zero outside the image); the JAX package's
+    row-packed buffer of all levels is a layout for the TPU and is not
+    built."""
+    h, w = grey.shape[-2], grey.shape[-1]
+    shapes = pyramid_level_shapes(h, w, num_levels(h, w))
+    lvl, tlx, tly = warp_windows(quads, shapes)
+    sx, sy, bad = sample_coords(H, patch_size)
+    ux, uy = window_coords(sx, sy, lvl, tlx, tly)
+    planes = [_pad_to(grey, *shapes[0])] + upper_levels(level1, shapes)
+    return _window_slices(planes, lvl, tlx, tly), ux, uy, bad
+
+
+def warp_patches_mxu(grey: torch.Tensor, level1: torch.Tensor, H: torch.Tensor,
+                     quads: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, K, S, S) float32 patches through ``warp_setup`` and kernel 8
+    (``ops.warp_eval``); samples of a degenerate homography are 0.
+
+    The counterpart of both ``rectify.warp_patches_mxu`` and
+    ``rectify.warp_patches_pallas`` of the JAX package: they share
+    ``_warp_setup`` and differ only in evaluating the windows with XLA
+    matmuls or with the Pallas kernel ``warp_eval``."""
+    from .ops.warp_eval import warp_eval
+
+    s = patch_size
+    windows, ux, uy, bad = warp_setup(grey, level1, H, quads, s)
+    lead = ux.shape[:-1]
+    vals = warp_eval(
+        windows.reshape(-1, WARP_WIN, WARP_WIN), ux.reshape(-1, s * s), uy.reshape(-1, s * s)
+    )
+    vals = torch.where(bad, 0.0, vals.reshape(ux.shape))
+    return vals.reshape(lead + (s, s))
+
+
+def warp_patches(grey: torch.Tensor, H: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """The gather warp (the JAX package's ``rectify.warp_patches``, its
+    oracle), plain PyTorch: grey (B, H, W) u8, H (B, K, 3, 3) -> (B, K, S, S)
+    float32 bilinear samples of the frame itself; samples outside
+    [0, W-1] x [0, H-1] or of a degenerate homography are 0."""
+    him, wim = grey.shape[-2], grey.shape[-1]
+    b, k = H.shape[0], H.shape[1]
+    s = patch_size
+    sxp, syp, bad = sample_coords(H, s)
+    inb = (sxp >= 0.0) & (sxp <= wim - 1.0) & (syp >= 0.0) & (syp <= him - 1.0) & ~bad
+    x0 = torch.clamp(torch.floor(sxp), 0, wim - 1)
+    y0 = torch.clamp(torch.floor(syp), 0, him - 1)
+    fx = sxp - x0
+    fy = syp - y0
+    # Lanes outside are masked below; index them at 0 (a NaN would not cast).
+    x0i = torch.where(inb, x0, 0.0).to(torch.int64)
+    y0i = torch.where(inb, y0, 0.0).to(torch.int64)
+    x1i = torch.clamp(x0i + 1, max=wim - 1)
+    y1i = torch.clamp(y0i + 1, max=him - 1)
+    flat = grey.reshape(b, -1)
+
+    def gather(yy, xx):
+        return flat.gather(1, (yy * wim + xx).reshape(b, -1)).reshape(yy.shape).to(torch.float32)
+
+    top = gather(y0i, x0i) * (1.0 - fx) + gather(y0i, x1i) * fx
+    bot = gather(y1i, x0i) * (1.0 - fx) + gather(y1i, x1i) * fx
+    vals = top * (1.0 - fy) + bot * fy
+    return torch.where(inb, vals, 0.0).reshape(b, k, s, s)
 
 
 # --------------------------------------------------------------------------

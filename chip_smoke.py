@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Three paths, each ``Detector.detect_batch`` + ``pose.solve_normalized_batch``:
+Five paths, each ``Detector.detect_batch`` + ``pose.solve_normalized_batch``.
+Three take the refine route (corner refinement, kernel 4's warp):
 
 * landscape: the 8-marker 1080p bench frame (1080x1920 u8,
   ``ARUCO_MIP_36H12``, ``DetectorConfig()``): ds 10, a 108x192 grid, the
@@ -15,6 +16,14 @@ Three paths, each ``Detector.detect_batch`` + ``pose.solve_normalized_batch``:
   4K frame (2160x3840) with the ``4k-dense-grid`` preset at 160 lanes:
   ds 20, a 108x192 grid, the label route through kernels 5 and 6.
 
+Two take the tail route (no refinement, or ds 1): kernel 1, kernel 2's
+labels mode, kernel 7, window slices in torch and kernel 8:
+
+* noref (C): the landscape frames with ``DetectorConfig(refine_corners=
+  False)``;
+* small (D): 120x160 frames holding one ``ARUCO_DEFAULT`` marker each,
+  ``DetectorConfig()``: ds 1, a 120x160 grid.
+
 Phases, each printing lines of numbers:
 
 1. device: the card (``nvidia-smi`` name and power limit) and versions;
@@ -23,19 +32,24 @@ Phases, each printing lines of numbers:
    per source, all at once;
 3. kernels: each kernel of each path against its plain PyTorch version on
    the card, at the path's shapes (4 frames; 2 for dense), each kernel fed
-   the previous kernel's real outputs; raises if a contract is broken;
+   the previous kernel's real outputs; raises if a contract is broken.
+   Kernel 8 also decodes its samples and those of its plain version into
+   the same cell grids;
 4. paths: each path driven once, every launch count set to 0 just before
    and read just after: every kernel of the path launched, no other and no
    plain version called.  Landscape and portrait on 16 frames: every
-   ground-truth marker within 2 px with a finite pose.  Dense on 4 frames:
-   frame 0 equal to the port's CPU path (ids, codes, rounded corners,
-   stats);
-5. timing: detect + pose in frames/s (landscape and portrait at batch 128,
-   dense at 16) with the device time per batch by kernel
-   (``torch.profiler``) beside it, each kernel against its plain version
-   at its path's phase-3 shapes (CUDA events, after warm-up), and on the
-   portrait coarse planes at batch 128 the fused kernel 2 against labels
-   mode + kernel 7.
+   ground-truth marker within 2 px with a finite pose.  Dense on 4 frames,
+   noref and small on 16: frame 0 equal to the port's CPU path (ids,
+   codes, rounded corners, stats); noref every marker within 12 px (its
+   corners are the coarse fit's, ~ds px), small its marker within 2 px;
+5. timing: detect + pose in frames/s (landscape, portrait and noref at
+   batch 128, dense at 16, small at 512) with the device time per batch
+   by kernel (``torch.profiler``) beside it, each kernel against its plain
+   version at its path's phase-3 shapes (CUDA events, after warm-up), on
+   the portrait coarse planes at batch 128 the fused kernel 2 against
+   labels mode + kernel 7, and on the noref quads at batch 128 kernel 8
+   against ``grid_sample`` and the tail route's warp + decode against
+   kernel 4's.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -50,7 +64,10 @@ pixel; coarse labelling 12 per cell per flood or CCL round (peel depths
 after the first not counted); rank pool 10 per cell; fit chain 40 per
 member cell of each fitted lane plus one per cell to find the members;
 refine 8 per window pixel; warp 20 per sample plus 2,560 per lane for
-Otsu.
+Otsu; window evaluation (kernel 8) 20 per sample of every lane, whose
+bytes are the windows, both coordinates and the samples.  ``library_ms``
+is one PyTorch call that computes the same function where there is one:
+``grid_sample`` (bilinear, zero padding, corners aligned) for kernel 8.
 """
 
 from __future__ import annotations
@@ -65,7 +82,13 @@ import numpy as np
 LANDSCAPE_HW = (1080, 1920)
 DICT_NAME = "ARUCO_MIP_36H12"
 DENSE_HW = (2160, 3840)
+SMALL_HW = (120, 160)
+# The "single" scene of the twin tests at half size: marker 5 of ARUCO_DEFAULT.
+SMALL_QUAD = np.array([[100, 70], [220, 75], [215, 190], [95, 185]], float) * 0.5
 MARKER_MM = 40.0
+# Noref corners are the coarse fit's, within ~ds px of the truth (the JAX
+# package's worst on the landscape frame is 9.46 px).
+NOREF_TOL_PX = 12.0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # name -> (CUDA source, TPU kernel it replaces, path whose shapes its row reports)
@@ -86,6 +109,8 @@ KERNELS = {
                "aruco3_tpu/ops/refine_pallas.py:47", "landscape"),
     "warp_decode": ("aruco3_tpu_torch/csrc/warp_decode.cu",
                     "aruco3_tpu/ops/warp_gather.py:53", "landscape"),
+    "warp_eval": ("aruco3_tpu_torch/csrc/warp_eval.cu",
+                  "aruco3_tpu/ops/warp_pallas.py:36", "noref"),
 }
 
 
@@ -115,6 +140,22 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn`` (torch.profiler over ``reps``
+    calls after one warm-up): the kernels' time without the host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    return sum(e.self_device_time_total for e in dev) / 1e3 / reps
 
 
 def mismatches(a, b) -> int:
@@ -174,7 +215,7 @@ def grid_frame(d, h, w, cell, rng, n_cols, n_rows):
 
 def counters():
     """name -> Counter of every kernel wrapper."""
-    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine, warp_decode
+    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine, warp_decode, warp_eval
 
     return {
         "frontend": frontend.count,
@@ -185,13 +226,14 @@ def counters():
         "fit_lanes": fit.lanes_count,
         "refine": refine.count,
         "warp_decode": warp_decode.count,
+        "warp_eval": warp_eval.count,
     }
 
 
 def wrappers():
     """name -> (kernel wrapper, plain version on the same arguments)."""
     from aruco3_tpu_torch import segment
-    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine, warp_decode
+    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine, warp_decode, warp_eval
 
     return {
         "frontend": (frontend.threshold_open_pool, frontend.plain),
@@ -202,12 +244,14 @@ def wrappers():
         "fit_lanes": (fit.fit_lanes, segment.fit_lanes),
         "refine": (refine.refine_corners, refine.plain),
         "warp_decode": (warp_decode.warp_decode, warp_decode.plain),
+        "warp_eval": (warp_eval.warp_eval, warp_eval.plain),
     }
 
 
 def stage_inputs(frames, det):
-    """The path's intermediate tensors for ``frames``: name -> the
-    arguments each kernel of the path gets (on the detector's route)."""
+    """The path's intermediate tensors for ``frames``: (name -> the
+    arguments each kernel of the path gets, on the detector's route; the
+    tail route's warp inputs, or None on the refine route)."""
     import torch
 
     from aruco3_tpu_torch import detector, rectify, segment
@@ -218,7 +262,8 @@ def stage_inputs(frames, det):
     args = {"frontend": (frames, det.config.threshold_window, params.open_radius, ds)}
     coarse, near, level1 = frontend.threshold_open_pool(*args["frontend"])
     k1, k2 = params.max_candidates, params.max_inner_candidates
-    if detector.fit_route(coarse.shape[1], coarse.shape[2], k1, k2) == "fused":
+    tail = detector.tail_route(params, ds)
+    if not tail and detector.fit_route(coarse.shape[1], coarse.shape[2], k1, k2) == "fused":
         args["coarse_fit"] = (coarse, params, ds)
         fit1, fit2, ic = coarse_fit.coarse_fit(*args["coarse_fit"])
     else:
@@ -238,6 +283,19 @@ def stage_inputs(frames, det):
         fit1, fit2 = fit.fused_fit_batch(l1, l2, ds, params, k1, k2, dup_skip=True)
         ic = segment.inner_footprint(l2) if k2 > 0 else torch.zeros_like(coarse)
     cand = segment.merge_fits(fit1, fit2, params, ds)
+    s = det.config.homography_sample_size
+    if tail:
+        quads, valid, _ = segment.finalize_quads(
+            cand["quads"], cand["valid"], cand["sizes"], cand["overflow"], params,
+            min_edge, min_sep,
+        )
+        H, h_valid = rectify.homography_square_to_quad(quads, s)
+        windows, ux, uy, bad = rectify.warp_setup(frames, level1, H, quads, s)
+        args["warp_eval"] = (windows.reshape(-1, rectify.WARP_WIN, rectify.WARP_WIN),
+                             ux.reshape(-1, s * s), uy.reshape(-1, s * s))
+        return args, {"grey": frames, "level1": level1, "H": H, "quads": quads,
+                      "valid": valid & h_valid, "bad": bad.reshape(-1, s * s),
+                      "mark": det.dictionary.get_mark_size()}
     args["refine"] = (
         frames, near, cand["quads"].contiguous(), cand["centroids"], ic,
         cand["is_inner"].contiguous(), cand["valid"].contiguous(), ds, wn,
@@ -246,7 +304,6 @@ def stage_inputs(frames, det):
     quads, valid, _ = segment.finalize_quads(
         quads, cand["valid"], cand["sizes"], cand["overflow"], params, min_edge, min_sep
     )
-    s = det.config.homography_sample_size
     H, h_valid = rectify.homography_square_to_quad(quads, s)
     h, w = frames.shape[1:]
     shapes = rectify.pyramid_level_shapes(h, w, rectify.num_levels(h, w))
@@ -255,7 +312,7 @@ def stage_inputs(frames, det):
         frames, rectify.upper_levels(level1, shapes), H.contiguous(), lvl, tlx, tly,
         valid & h_valid, s, det.dictionary.get_mark_size(),
     )
-    return args
+    return args, None
 
 
 def fit_counts(g, r, tag=""):
@@ -269,9 +326,13 @@ def fit_counts(g, r, tag=""):
     return counts, float((g["centroids"] - r["centroids"]).abs().max())
 
 
-def compare(name, args, got, ref):
+def compare(name, args, got, ref, tail=None):
     """(mismatch counts, max abs error) of a kernel's outputs against its
-    plain version's, by the kernel's contract."""
+    plain version's, by the kernel's contract (``tail``: the tail route's
+    warp inputs from ``stage_inputs``)."""
+    import torch
+
+    from aruco3_tpu_torch import rectify
     from aruco3_tpu_torch.ops import coarse_fit
 
     if name == "frontend":
@@ -307,10 +368,20 @@ def compare(name, args, got, ref):
         counts = {"otsu_mismatch": mismatches(got[1][valid], ref[1][valid]),
                   "grid_mismatch": mismatches(got[2][valid], ref[2][valid])}
         return counts, float((got[0] - ref[0]).abs().max())
+    if name == "warp_eval":
+        s = int(round(got.shape[1] ** 0.5))
+        valid = tail["valid"].reshape(-1)
+
+        def grids(vals):
+            patches = torch.where(tail["bad"], 0.0, vals).reshape(-1, s, s)
+            return rectify.otsu_cells(patches, tail["mark"])[1][valid]
+
+        return ({"grid_mismatch": mismatches(grids(got), grids(ref))},
+                float((got - ref).abs().max()))
     raise KeyError(name)
 
 
-def compare_kernels(path, args, params) -> dict:
+def compare_kernels(path, args, params, tail=None) -> dict:
     """Phase 3: each kernel of the path against its plain version; returns
     name -> (max abs error, bytes, operations), raising on a broken
     contract.  Where the path takes kernels 5 and 6, also the whole split
@@ -334,7 +405,7 @@ def compare_kernels(path, args, params) -> dict:
         kernel, plain = table[name]
         got = kernel(*a)
         ref = plain(*a)
-        counts, err = compare(name, a, got, ref)
+        counts, err = compare(name, a, got, ref, tail)
         counts.pop("valid_lanes_x", None)
         log(f"kernel {name}", path=path, max_abs_err=err, **counts)
         require(sum(counts.values()) == 0, f"{name} ({path}): outputs differ from the plain version")
@@ -387,6 +458,8 @@ def work(name, args, got):
         valid, s = args[6], args[7]
         nv = int(valid.sum())
         return nbytes(args[2:7], got) + nv * s * s, nv * (20 * s * s + 2560)
+    if name == "warp_eval":
+        return nbytes(args, got), 20 * got.numel()
     raise KeyError(name)
 
 
@@ -408,9 +481,9 @@ def detect_and_pose(det, frames):
     return out, rot, tr, err
 
 
-def check_markers(out, tr, truth) -> float:
-    """Every ground-truth marker in every frame within 2 px (cyclic), with
-    a finite pose; returns the worst corner error."""
+def check_markers(out, tr, truth, tol=2.0) -> float:
+    """Every ground-truth marker in every frame within ``tol`` px
+    (cyclic), with a finite pose; returns the worst corner error."""
     valid = out["marker_valid"].cpu().numpy()
     ids = out["marker_id"].cpu().numpy()
     corners = out["marker_corners"].double().cpu().numpy()
@@ -423,7 +496,7 @@ def check_markers(out, tr, truth) -> float:
                 for k in np.nonzero(valid[f])[0]
                 if ids[f, k] == mid
             ]
-            require(bool(errs) and min(errs) <= 2.0, f"frame {f}: marker {mid} missed")
+            require(bool(errs) and min(errs) <= tol, f"frame {f}: marker {mid} missed")
             worst = max(worst, min(errs))
         require(bool(np.isfinite(tr[f][valid[f]]).all()), f"frame {f}: non-finite pose")
     return worst
@@ -450,6 +523,92 @@ def drive(path, det, frames, kernels_of_path):
             require(n == 0, f"{path}: kernel {name} is not on this path but was launched")
     require(all(v == 0 for v in plains.values()), f"{path}: a plain version ran")
     return out, tr, launches
+
+
+def equal_to_cpu(path, out, det, frame):
+    """Frame 0 of a card run against the port's CPU path on the same frame:
+    ids, codes, rounded corners and stats must be equal.  Returns (float
+    candidates equal, seconds of the CPU run)."""
+    from aruco3_tpu_torch import Detector
+    from aruco3_tpu_torch.detector import to_host
+
+    got0 = to_host(out, 0)
+    t_cpu = time.perf_counter()
+    ref0 = Detector(det.config, det.dictionary, device="cpu").detect(frame)
+    cpu_s = time.perf_counter() - t_cpu
+
+    def summary(det_):
+        return sorted((m.id, m.code, tuple(m.corners)) for m in det_.markers)
+
+    require(summary(got0) == summary(ref0), f"{path}: frame 0 markers differ from the CPU path")
+    require(got0.stats == ref0.stats, f"{path}: frame 0 stats differ from the CPU path")
+    return got0.candidates == ref0.candidates, cpu_s
+
+
+def sample_grid(ux, uy):
+    """Kernel 8's window coordinates as a ``grid_sample`` grid (N, 1, S2, 2)
+    for ``align_corners=True`` on 64-px windows: x = (g + 1) / 2 * 63."""
+    import torch
+
+    return torch.stack([ux * (2.0 / 63.0) - 1.0, uy * (2.0 / 63.0) - 1.0], dim=-1)[:, None]
+
+
+def grid_sample_eval(windows, grid):
+    """Kernel 8's function as one PyTorch call (zero padding)."""
+    import torch.nn.functional as F
+
+    return F.grid_sample(windows[:, None], grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=True)[:, 0, 0]
+
+
+def tail_timing(det, frames, card, small_args) -> None:
+    """On the tail route's quads of ``frames``: kernel 8 against
+    ``grid_sample`` and its bound (CUDA events, and device time alone,
+    also at the phase-3 arguments ``small_args``), and the route's warp +
+    decode (window slices, kernel 8, torch Otsu and resize) against kernel
+    4 (warp and decode in one launch, valid lanes only)."""
+    from aruco3_tpu_torch import rectify
+    from aruco3_tpu_torch.ops import warp_decode, warp_eval
+
+    args, tail = stage_inputs(frames, det)
+    win, ux, uy = args["warp_eval"]
+    got = warp_eval.warp_eval(win, ux, uy)
+    k_ms = cuda_ms(lambda: warp_eval.warp_eval(win, ux, uy), reps=10)
+    grid = sample_grid(ux, uy)
+    lib_err = float((grid_sample_eval(win, grid) - warp_eval.plain(win, ux, uy)).abs().max())
+    lib_ms = cuda_ms(lambda: grid_sample_eval(win, grid), reps=10)
+    b_ms, b_by = bound(*work("warp_eval", args["warp_eval"], got))
+    dev = {}
+    for shape, (a_win, a_ux, a_uy) in (("batch", args["warp_eval"]), ("phase3", small_args)):
+        a_grid = sample_grid(a_ux, a_uy)
+        dev[f"{shape}_kernel_device_ms"] = round(
+            device_ms(lambda: warp_eval.warp_eval(a_win, a_ux, a_uy), reps=10), 4)
+        dev[f"{shape}_grid_sample_device_ms"] = round(
+            device_ms(lambda: grid_sample_eval(a_win, a_grid), reps=10), 4)
+    grey, level1, H, quads, valid = (tail[k] for k in ("grey", "level1", "H", "quads", "valid"))
+    s = int(round(ux.shape[1] ** 0.5))
+    m = tail["mark"]
+    h, w = grey.shape[1:]
+    shapes = rectify.pyramid_level_shapes(h, w, rectify.num_levels(h, w))
+
+    def tail_warp():
+        patches = rectify.warp_patches_mxu(grey, level1, H, quads, s)
+        return rectify.otsu_cells(patches.reshape(-1, s, s), m)
+
+    def kernel4():
+        lvl, tlx, tly = rectify.warp_windows(quads, shapes)
+        return warp_decode.warp_decode(grey, rectify.upper_levels(level1, shapes),
+                                       H.contiguous(), lvl, tlx, tly, valid, s, m)
+
+    tail_ms = cuda_ms(tail_warp, reps=5)
+    k4_ms = cuda_ms(kernel4, reps=5)
+    log("timing warp_eval at batch", path="noref", card=repr(card), batch=grey.shape[0],
+        lanes=ux.shape[0], kernel_ms=round(k_ms, 4), grid_sample_ms=round(lib_ms, 4),
+        grid_sample_max_abs_diff=lib_err, bound_ms=round(b_ms, 5), bound_by=b_by,
+        phase3_lanes=small_args[1].shape[0], **dev)
+    log("timing tail warp", path="noref", card=repr(card), batch=grey.shape[0],
+        lanes=ux.shape[0], valid_lanes=int(valid.sum()), slices_kernel8_decode_ms=round(tail_ms, 4),
+        kernel4_ms=round(k4_ms, 4))
 
 
 def profile_path(path, det, frames, ms_per_batch, reps=3) -> None:
@@ -514,7 +673,6 @@ def main() -> int:
     from dataclasses import replace
 
     from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig, render
-    from aruco3_tpu_torch.detector import to_host
     from aruco3_tpu_torch.models import presets
     from aruco3_tpu_torch.ops import _build
 
@@ -522,7 +680,7 @@ def main() -> int:
     _build.lib()
     log("build", seconds=round(time.perf_counter() - t0, 3), library=_build.library_path().name)
 
-    # The three paths' detectors and frames.
+    # The five paths' detectors and frames.
     dictionary = ARDictionary.new_from_named_dict(DICT_NAME)
     det = Detector(DetectorConfig(), dictionary, device="cuda")
     h, w = LANDSCAPE_HW
@@ -539,19 +697,27 @@ def main() -> int:
     boards = [grid_frame(dense_dict, dh, dw, 230, np.random.default_rng(s), 14, 9)
               for s in range(2)]
     dense_truth = boards[0][1]
+    det_noref = Detector(DetectorConfig(refine_corners=False), dictionary, device="cuda")
+    small_dict = ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
+    det_small = Detector(DetectorConfig(), small_dict, device="cuda")
+    sh, sw = SMALL_HW
+    smalls = np.stack([render.render_marker(small_dict, 5, (sw, sh), SMALL_QUAD, noise_sigma=2.0,
+                                            rng=np.random.default_rng(s)) for s in range(4)])
 
     paths = {
         "landscape": (det, np.stack([scene] + extra)),
         "portrait": (det, np.stack([portrait] + [np.ascontiguousarray(np.rot90(e))
                                                  for e in extra])),
         "dense": (det_dense, np.stack([b[0] for b in boards])),
+        "noref": (det_noref, np.stack([scene] + extra)),
+        "small": (det_small, smalls),
     }
     phase3 = {}
     args_of = {}
     for path, (d, frames) in paths.items():
-        args = stage_inputs(torch.from_numpy(frames).cuda(), d)
+        args, tail = stage_inputs(torch.from_numpy(frames).cuda(), d)
         args_of[path] = args
-        phase3[path] = compare_kernels(path, args, d.geometry(*frames.shape[1:])[0])
+        phase3[path] = compare_kernels(path, args, d.geometry(*frames.shape[1:])[0], tail)
 
     # Phase 4: each path with its own counts.
     launches_of = {}
@@ -565,30 +731,39 @@ def main() -> int:
     worst_p = check_markers(out, tr, truth_p)
     log("path portrait", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
         worst_corner_err_px=round(worst_p, 3))
-    del t16, p16
+    del p16
+    out, tr, launches_of["noref"] = drive("noref", det_noref, t16, set(args_of["noref"]))
+    worst_n = check_markers(out, tr, truth, tol=NOREF_TOL_PX)
+    cand_eq, cpu_s = equal_to_cpu("noref", out, det_noref, scene)
+    log("path noref", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
+        worst_corner_err_px=round(worst_n, 3), cpu_reference_s=round(cpu_s, 3),
+        candidates_equal_cpu=cand_eq)
+    del t16
     d4 = torch.from_numpy(np.stack([b[0] for b in boards] * 2)).cuda()
     out, tr, launches_of["dense"] = drive("dense", det_dense, d4, set(args_of["dense"]))
-    got0 = to_host(out, 0)
-    t_cpu = time.perf_counter()
-    ref0 = Detector(dense_cfg, dense_dict, device="cpu").detect(boards[0][0])
-    cpu_s = time.perf_counter() - t_cpu
-
-    def summary(det_):
-        return sorted((m.id, m.code, tuple(m.corners)) for m in det_.markers)
-
-    found = {m.id for m in got0.markers} & {mid for mid, _ in dense_truth}
+    cand_eq, cpu_s = equal_to_cpu("dense", out, det_dense, boards[0][0])
+    found = {int(i) for i, v in zip(out["marker_id"][0].tolist(), out["marker_valid"][0].tolist())
+             if v} & {mid for mid, _ in dense_truth}
     log("path dense", frames=4, tags_found=len(found), tags_on_board=len(dense_truth),
-        markers_frame0=len(got0.markers), cpu_reference_s=round(cpu_s, 3),
-        candidates_equal_cpu=got0.candidates == ref0.candidates)
-    require(summary(got0) == summary(ref0), "dense: frame 0 markers differ from the CPU path")
-    require(got0.stats == ref0.stats, "dense: frame 0 stats differ from the CPU path")
+        markers_frame0=int(out["marker_valid"][0].sum()), cpu_reference_s=round(cpu_s, 3),
+        candidates_equal_cpu=cand_eq)
     require(bool(torch.isfinite(tr[0][out["marker_valid"][0]]).all()), "dense: non-finite pose")
     del d4
+    s16 = torch.from_numpy(np.concatenate([smalls] * 4)).cuda()
+    out, tr, launches_of["small"] = drive("small", det_small, s16, set(args_of["small"]))
+    worst_s = check_markers(out, tr, [(5, SMALL_QUAD)])
+    cand_eq, cpu_s = equal_to_cpu("small", out, det_small, smalls[0])
+    log("path small", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
+        worst_corner_err_px=round(worst_s, 3), cpu_reference_s=round(cpu_s, 3),
+        candidates_equal_cpu=cand_eq)
+    del s16
 
     # Phase 5: throughput, kernel against plain version, route comparison.
     for path, (d, frames), batch in (("landscape", paths["landscape"], 128),
                                      ("portrait", paths["portrait"], 128),
-                                     ("dense", paths["dense"], 16)):
+                                     ("dense", paths["dense"], 16),
+                                     ("noref", paths["noref"], 128),
+                                     ("small", paths["small"], 512)):
         big = torch.from_numpy(np.ascontiguousarray(
             np.broadcast_to(frames[0], (batch,) + frames.shape[1:])
         )).cuda()
@@ -598,6 +773,8 @@ def main() -> int:
         profile_path(path, d, big, ms)
         if path == "portrait":
             route_timing(d, big, card)
+        if path == "noref":
+            tail_timing(d, big, card, args_of["noref"]["warp_eval"])
         del big
 
     table = wrappers()
@@ -609,12 +786,17 @@ def main() -> int:
         p_ms = cuda_ms(lambda: plain(*a), reps=2)
         err, bytes_, ops = phase3[path][name]
         b_ms, b_by = bound(bytes_, ops)
+        lib_ms = None
+        if name == "warp_eval":
+            grid = sample_grid(a[1], a[2])
+            lib_ms = cuda_ms(lambda: grid_sample_eval(a[0], grid), reps=10)
         log(f"timing {name}", path=path, card=repr(card), batch=int(a[0].shape[0]), kernel_ms=round(k_ms, 4),
-            plain_ms=round(p_ms, 4), bound_ms=round(b_ms, 5), bound_by=b_by, bytes=bytes_, ops=ops)
+            plain_ms=round(p_ms, 4), bound_ms=round(b_ms, 5), bound_by=b_by, bytes=bytes_, ops=ops,
+            library_ms=lib_ms if lib_ms is None else round(lib_ms, 4))
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches_of[path][name], "max_abs_err": err,
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None, "path": path})
+                     "library_ms": lib_ms, "path": path})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

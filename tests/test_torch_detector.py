@@ -193,8 +193,10 @@ def test_codebooks_are_a_copy_of_the_jax_data():
 
 
 def test_port_reads_no_file_of_the_jax_package():
-    """Import the port, load every dictionary and detect a frame on the CPU
-    (both routes) while an audit hook records every file opened."""
+    """Import the port, load every dictionary and detect frames on the CPU
+    (both fit routes of the refine route; the tail route at coarse factor
+    1 and without refinement) while an audit hook records every file
+    opened."""
     code = (
         "import os, sys\n"
         "opened = []\n"
@@ -208,6 +210,8 @@ def test_port_reads_no_file_of_the_jax_package():
         "img, _, _ = render.random_marker_scene(d, 3, (160, 120), rng=np.random.default_rng(0))\n"
         "Detector(DetectorConfig(), d, device='cpu').detect(img)\n"
         "Detector(DetectorConfig(max_candidates=130), d, device='cpu').detect(img)\n"
+        "Detector(DetectorConfig(refine_corners=False), d, device='cpu').detect(\n"
+        "    np.tile(img, (2, 2)))\n"
         "jax_dir = os.path.join(os.getcwd(), 'aruco3_tpu') + os.sep\n"
         "bad = [p for p in opened if os.path.abspath(p).startswith(jax_dir)]\n"
         "assert not bad, bad\n"

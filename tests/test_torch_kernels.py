@@ -19,6 +19,7 @@ from aruco3_tpu_torch.ops import fit as kfit
 from aruco3_tpu_torch.ops import frontend as k1
 from aruco3_tpu_torch.ops import refine as k3
 from aruco3_tpu_torch.ops import warp_decode as k4
+from aruco3_tpu_torch.ops import warp_eval as k8
 from torch_twin import cuda_device, make_scene, n, noisy_blocks, random_quads
 
 P = segment.QuadParams()
@@ -32,6 +33,7 @@ COUNTS = {
     "fused_fit": kfit.fused_count,
     "refine": k3.count,
     "warp_decode": k4.count,
+    "warp_eval": k8.count,
 }
 
 
@@ -247,6 +249,56 @@ def test_portrait_detect_on_card_matches_cpu(kind):
     kfit.fused_count.reset()
     got = Detector(cfg, d, device=dev).detect(img)
     assert (k2.labels_count.launches, kfit.fused_count.launches) == (1, 1)
+    ref = Detector(cfg, d, device="cpu").detect(img)
+    assert ids <= {m.id for m in got.markers}
+    assert sorted((m.id, m.code, tuple(m.corners)) for m in got.markers) == sorted(
+        (m.id, m.code, tuple(m.corners)) for m in ref.markers
+    )
+    assert got.candidates == ref.candidates
+    assert got.stats == ref.stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", [1, 7, 4096])
+def test_warp_eval_kernel_matches_plain(count):
+    """Counts that are no multiple of the block; coordinates inside, in the
+    partial edge bands, beyond them and far outside."""
+    dev = cuda_device()
+    rng = np.random.default_rng(41)
+    windows = rng.uniform(0, 255, size=(count, 64, 64)).astype(np.float32)
+
+    def coords():
+        u = rng.uniform(-1.5, 64.5, size=(count, S * S))
+        far = rng.random(u.shape) < 0.05
+        return np.where(far, rng.choice([-1e6, -3.0, 67.0, 1e6], u.shape), u).astype(np.float32)
+
+    args = [torch.from_numpy(a).to(dev) for a in (windows, coords(), coords())]
+    got = k8.warp_eval(*args)
+    ref = k8.plain(*args)
+    assert got.shape == ref.shape == (count, S * S)
+    assert (got - ref).abs().max() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,size,cfg", [
+    ("multi", (320, 240), DetectorConfig(refine_corners=False)),
+    ("nested", (320, 240), DetectorConfig(refine_corners=False)),
+    ("single", (160, 120), DetectorConfig()),
+])
+def test_tail_route_on_card_matches_cpu(kind, size, cfg):
+    """Without refinement, or at coarse factor 1: kernel 1, labels mode,
+    kernel 7 and kernel 8 launch once each, nothing else."""
+    dev = cuda_device()
+    d = dictionaries.ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
+    img, ids = make_scene(kind, *size, scale=size[0] / 320)
+    for c in COUNTS.values():
+        c.reset()
+    got = Detector(cfg, d, device=dev).detect(img)
+    tail = {"frontend", "coarse_labels", "fused_fit", "warp_eval"}
+    assert {name: c.launches for name, c in COUNTS.items()} == {
+        name: int(name in tail) for name in COUNTS
+    }
+    assert all(c.plain_calls == 0 for c in COUNTS.values())
     ref = Detector(cfg, d, device="cpu").detect(img)
     assert ids <= {m.id for m in got.markers}
     assert sorted((m.id, m.code, tuple(m.corners)) for m in got.markers) == sorted(

@@ -82,22 +82,24 @@ def _noise(img, seed):
     return np.clip(noisy, 0, 255).astype(np.uint8)
 
 
-def make_scene(kind, w=320, h=240):
+def make_scene(kind, w=320, h=240, scale=1.0):
     """The scenes of tests/test_detector.py, scaled to 320x240, rendered
-    with the port's renderer (equal to the JAX package's).  Returns the
-    image and the marker ids it holds."""
+    with the port's renderer (equal to the JAX package's).  ``scale``
+    scales the marker quads and the plate (0.5 with a 160x120 frame gives
+    the same scene at half size).  Returns the image and the marker ids it
+    holds."""
     from aruco3_tpu_torch import dictionaries, render
 
     d = dictionaries.ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
-    single = np.array([[100, 70], [220, 75], [215, 190], [95, 185]], float)
+    single = np.array([[100, 70], [220, 75], [215, 190], [95, 185]], float) * scale
     if kind in ("single", "rgb"):
         img = render.render_marker(d, 5, (w, h), single, noise_sigma=2.0)
         return (np.stack([img] * 3, axis=-1) if kind == "rgb" else img), {5}
     if kind == "multi":
         img = np.full((h, w), 255, np.uint8)
         quads = {
-            7: np.array([[30, 30], [110, 32], [108, 110], [28, 108]], float),
-            99: np.array([[190, 120], [280, 125], [275, 215], [185, 210]], float),
+            7: np.array([[30, 30], [110, 32], [108, 110], [28, 108]], float) * scale,
+            99: np.array([[190, 120], [280, 125], [275, 215], [185, 210]], float) * scale,
         }
         for mid, q in quads.items():
             img = np.minimum(img, render.render_marker(d, mid, (w, h), q))
@@ -108,11 +110,11 @@ def make_scene(kind, w=320, h=240):
         )
         return img, {5}
     if kind == "nested":
-        corners = np.array([[120, 90], [200, 95], [195, 170], [115, 165]], float)
+        corners = np.array([[120, 90], [200, 95], [195, 170], [115, 165]], float) * scale
         mimg = render.render_marker(
             d, 17, (w, h), corners, background=0, quiet_zone_cells=2
         )
         plate = np.zeros((h, w), bool)
-        plate[60:205, 75:245] = True
+        plate[round(60 * scale) : round(205 * scale), round(75 * scale) : round(245 * scale)] = True
         return _noise(np.where(plate, mimg, 255).astype(np.uint8), 3), {17}
     raise ValueError(kind)
