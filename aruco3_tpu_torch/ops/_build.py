@@ -44,7 +44,7 @@ _FLT = ctypes.c_float
 
 # C signatures: every pointer and the stream as c_void_p.
 SIGNATURES = {
-    "a3_frontend": [_PTR] * 5 + [_INT] * 8 + [_PTR],
+    "a3_frontend": [_PTR] * 5 + [_INT] * 12 + [_PTR],
     "a3_coarse_fit": [_PTR] * 16 + [_INT] * 15 + [_FLT, _FLT, _INT, _PTR],
     "a3_coarse_labels": [_PTR] * 5 + [_INT] * 11 + [_PTR],
     "a3_rank_roots": [_PTR] * 5 + [_INT] * 5 + [_PTR],
@@ -52,10 +52,11 @@ SIGNATURES = {
     "a3_fused_fit": [_PTR] * 15 + [_INT] * 8 + [_FLT, _FLT, _INT, _INT, _PTR],
     "a3_refine": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     "a3_warp_decode": [_PTR] * 12 + [_INT] * 6 + [_PTR],
-    "a3_warp_eval": [_PTR] * 4 + [_INT] * 2 + [_PTR],
+    "a3_warp_eval": [_PTR] * 4 + [_INT] * 3 + [_PTR],
 }
 
 _lib = None
+_fns: dict = {}
 
 
 def sources() -> list[Path]:
@@ -129,6 +130,14 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+def fn(name: str):
+    """The library's C function ``name`` (looked up once)."""
+    f = _fns.get(name)
+    if f is None:
+        f = _fns[name] = getattr(lib(), name)
+    return f
+
+
 def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if err != 0:
@@ -148,5 +157,7 @@ def checked_ptr(t: torch.Tensor, dtype, shape=None, name="tensor"):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream() -> int:
+    """The current CUDA stream of the current device, as a raw handle (no
+    ``torch.cuda.Stream`` object is built: this runs on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

@@ -15,6 +15,8 @@ bfloat16.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import rectify
@@ -34,26 +36,45 @@ def plain(windows: torch.Tensor, ux: torch.Tensor, uy: torch.Tensor) -> torch.Te
     return (wy * t).sum(dim=-1)
 
 
+# Two waves of blocks of 256 threads on 132 SMs (8 such blocks an SM).
+TARGET_BLOCKS = 2 * 132 * 8
+BLOCK = 256
+
+
+@functools.lru_cache(maxsize=64)
+def chunk_size(n: int, s2: int) -> int:
+    """Samples per block of the kernel's grid (a multiple of ``BLOCK``).
+    Where ``n`` windows give half of ``TARGET_BLOCKS`` or more, one chunk
+    per window (the kernel stages the window); else the windows' samples
+    split into chunks so that the grid comes near ``TARGET_BLOCKS`` (the
+    kernel reads the taps through the read-only cache)."""
+    blocks_per_window = -(-s2 // BLOCK)
+    chunks = min(blocks_per_window, max(1, TARGET_BLOCKS // max(n, 1)))
+    return -(-blocks_per_window // chunks) * BLOCK
+
+
 def warp_eval(windows: torch.Tensor, ux: torch.Tensor, uy: torch.Tensor) -> torch.Tensor:
     """(N, S^2) samples of (N, 64, 64) windows at (ux, uy); see the module
     docstring.  CUDA tensors launch the kernel, CPU tensors take ``plain``."""
     if windows.device.type == "cpu":
         return plain(windows, ux, uy)
-    if windows.ndim != 3 or ux.ndim != 2:
-        raise ValueError(
-            f"expected windows (N, 64, 64) and ux (N, S2), got {tuple(windows.shape)}, "
-            f"{tuple(ux.shape)}"
-        )
     n, s2 = ux.shape
     win = rectify.WARP_WIN
+    if not (
+        windows.is_cuda and windows.shape == (n, win, win) and uy.shape == ux.shape
+        and windows.dtype == ux.dtype == uy.dtype == torch.float32
+        and windows.is_contiguous() and ux.is_contiguous() and uy.is_contiguous()
+        and windows.data_ptr() % 16 == 0 and ux.device == uy.device == windows.device
+    ):
+        raise ValueError(
+            "expected contiguous float32 CUDA windows (N, 64, 64) (16-byte aligned) and "
+            f"ux, uy (N, S2); got {tuple(windows.shape)} {windows.dtype}, "
+            f"{tuple(ux.shape)} {ux.dtype}, {tuple(uy.shape)} {uy.dtype}"
+        )
     out = torch.empty((n, s2), dtype=torch.float32, device=windows.device)
-    err = _build.lib().a3_warp_eval(
-        _build.checked_ptr(windows, torch.float32, (n, win, win), "windows"),
-        _build.checked_ptr(ux, torch.float32, (n, s2), "ux"),
-        _build.checked_ptr(uy, torch.float32, (n, s2), "uy"),
-        out.data_ptr(),
-        n, s2,
-        _build.stream(),
+    err = _build.fn("a3_warp_eval")(
+        windows.data_ptr(), ux.data_ptr(), uy.data_ptr(), out.data_ptr(),
+        n, s2, chunk_size(n, s2), _build.stream(),
     )
     _build.check(err, "a3_warp_eval")
     count.launches += 1

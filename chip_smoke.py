@@ -44,8 +44,10 @@ Phases, each printing lines of numbers:
    corners are the coarse fit's, ~ds px), small its marker within 2 px;
 5. timing: detect + pose in frames/s (landscape, portrait and noref at
    batch 128, dense at 16, small at 512) with the device time per batch
-   by kernel (``torch.profiler``) beside it, each kernel against its plain
-   version at its path's phase-3 shapes (CUDA events, after warm-up), on
+   by kernel (``torch.profiler``) beside it; each kernel of the path alone
+   on that batch (device time, profiler) beside its bound there; each
+   kernel against its plain version at its path's phase-3 shapes (CUDA
+   events after warm-up, and the kernel's device time alone), on
    the portrait coarse planes at batch 128 the fused kernel 2 against
    labels mode + kernel 7, and on the noref quads at batch 128 kernel 8
    against ``grid_sample`` and the tail route's warp + decode against
@@ -89,6 +91,8 @@ MARKER_MM = 40.0
 # Noref corners are the coarse fit's, within ~ds px of the truth (the JAX
 # package's worst on the landscape frame is 9.46 px).
 NOREF_TOL_PX = 12.0
+# Phase-5 batch of each path.
+BATCHES = {"landscape": 128, "portrait": 128, "dense": 16, "noref": 128, "small": 512}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # name -> (CUDA source, TPU kernel it replaces, path whose shapes its row reports)
@@ -144,18 +148,23 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, reps: int) -> float:
     """Device milliseconds per call of ``fn`` (torch.profiler over ``reps``
-    calls after one warm-up): the kernels' time without the host's."""
+    calls after one warm-up): the kernels' time without the host's.  Raises
+    if three profiles record no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    return sum(e.self_device_time_total for e in dev) / 1e3 / reps
+    for _ in range(3):  # the profiler now and then records no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        total = sum(e.self_device_time_total for e in dev)
+        if total > 0:
+            return total / 1e3 / reps
+    raise RuntimeError("torch.profiler recorded no device time in three tries")
 
 
 def mismatches(a, b) -> int:
@@ -637,6 +646,25 @@ def profile_path(path, det, frames, ms_per_batch, reps=3) -> None:
                       "device_ms_per_batch": {k: round(v, 4) for k, v in top}}), flush=True)
 
 
+def batch_kernel_timing(path, det, frames, card) -> dict:
+    """Each kernel of the path alone on the path's phase-5 batch: device ms
+    (torch.profiler, the wrapper's host time left out) beside its bound on
+    the same inputs.  Returns name -> (device ms, bound ms, bound by)."""
+    args, _ = stage_inputs(frames, det)
+    table = wrappers()
+    out = {}
+    for name, a in args.items():
+        kernel = table[name][0]
+        got = kernel(*a)
+        ms = device_ms(lambda: kernel(*a), reps=5)
+        b_ms, b_by = bound(*work(name, a, got))
+        log(f"timing {name} at batch", path=path, card=repr(card), batch=frames.shape[0],
+            device_ms=round(ms, 4), bound_ms=round(b_ms, 5), bound_by=b_by,
+            share_of_bound=round(b_ms / ms, 3))
+        out[name] = (ms, b_ms, b_by)
+    return out
+
+
 def route_timing(det, frames, card) -> None:
     """On the portrait coarse planes: the fused kernel 2 (fit mode) against
     the label route's labels mode + kernel 7 (the route is not switched)."""
@@ -759,11 +787,9 @@ def main() -> int:
     del s16
 
     # Phase 5: throughput, kernel against plain version, route comparison.
-    for path, (d, frames), batch in (("landscape", paths["landscape"], 128),
-                                     ("portrait", paths["portrait"], 128),
-                                     ("dense", paths["dense"], 16),
-                                     ("noref", paths["noref"], 128),
-                                     ("small", paths["small"], 512)):
+    at_batch = {}
+    for path, batch in BATCHES.items():
+        d, frames = paths[path]
         big = torch.from_numpy(np.ascontiguousarray(
             np.broadcast_to(frames[0], (batch,) + frames.shape[1:])
         )).cuda()
@@ -771,6 +797,7 @@ def main() -> int:
         log("timing", path=path, card=repr(card), batch=batch, ms_per_batch=round(ms, 3),
             frames_per_s=round(batch * 1000.0 / ms, 1))
         profile_path(path, d, big, ms)
+        at_batch[path] = batch_kernel_timing(path, d, big, card)
         if path == "portrait":
             route_timing(d, big, card)
         if path == "noref":
@@ -783,6 +810,7 @@ def main() -> int:
         kernel, plain = table[name]
         a = args_of[path][name]
         k_ms = cuda_ms(lambda: kernel(*a), reps=10)
+        dev_ms = device_ms(lambda: kernel(*a), reps=10)
         p_ms = cuda_ms(lambda: plain(*a), reps=2)
         err, bytes_, ops = phase3[path][name]
         b_ms, b_by = bound(bytes_, ops)
@@ -790,13 +818,19 @@ def main() -> int:
         if name == "warp_eval":
             grid = sample_grid(a[1], a[2])
             lib_ms = cuda_ms(lambda: grid_sample_eval(a[0], grid), reps=10)
+        batch_ms, batch_bound_ms, batch_bound_by = at_batch[path][name]
         log(f"timing {name}", path=path, card=repr(card), batch=int(a[0].shape[0]), kernel_ms=round(k_ms, 4),
-            plain_ms=round(p_ms, 4), bound_ms=round(b_ms, 5), bound_by=b_by, bytes=bytes_, ops=ops,
-            library_ms=lib_ms if lib_ms is None else round(lib_ms, 4))
+            device_ms=round(dev_ms, 4), plain_ms=round(p_ms, 4), bound_ms=round(b_ms, 5),
+            bound_by=b_by, bytes=bytes_, ops=ops,
+            library_ms=lib_ms if lib_ms is None else round(lib_ms, 4),
+            phase5_batch=BATCHES[path], batch_device_ms=round(batch_ms, 4),
+            batch_bound_ms=round(batch_bound_ms, 5))
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches_of[path][name], "max_abs_err": err,
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms, "path": path})
+                     "library_ms": lib_ms, "path": path, "device_ms": dev_ms,
+                     "batch": BATCHES[path], "batch_device_ms": batch_ms,
+                     "batch_bound_ms": batch_bound_ms, "batch_bound_by": batch_bound_by})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

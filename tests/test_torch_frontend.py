@@ -56,12 +56,14 @@ def test_adaptive_threshold_golden():
 
 @pytest.mark.parametrize("ds", [2, 6, 10])
 def test_frontend_plain_matches_jax(rng, ds):
-    """Kernel 1's plain version equals the XLA frontend bit for bit."""
+    """Kernel 1's plain version equals the XLA frontend bit for bit, the
+    optional opened mask included."""
     grey = noisy_blocks(rng, 2, 240, 320)
-    coarse, near, level1 = k1.plain(t(grey), 7, 2, ds)
+    coarse, near, level1, opened = k1.plain(t(grey), 7, 2, ds, opened=True)
     for b in range(grey.shape[0]):
         g = jnp.asarray(grey[b])
         black = jsegment.open_mask(~jfrontend.adaptive_threshold(g, 7), 2)
+        np.testing.assert_array_equal(n(opened[b]), np.asarray(black))
         np.testing.assert_array_equal(n(coarse[b]), np.asarray(jsegment.pool_black(black, ds)))
         np.testing.assert_array_equal(
             n(near[b]), np.asarray(jsegment._dilate3(jsegment._dilate3(black)))

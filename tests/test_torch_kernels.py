@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from aruco3_tpu_torch import Detector, DetectorConfig, dictionaries, rectify, segment
+from aruco3_tpu_torch import Detector, DetectorConfig, dictionaries, frontend, rectify, segment
 from aruco3_tpu_torch.ops import coarse_fit as k2
 from aruco3_tpu_torch.ops import fit as kfit
 from aruco3_tpu_torch.ops import frontend as k1
@@ -68,16 +68,61 @@ def test_label_route_takes_plain_versions_on_cpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,ds", [((240, 320), 2), ((250, 333), 10), ((1080, 1920), 10)])
-def test_frontend_kernel_matches_plain(shape, ds):
+@pytest.mark.parametrize("shape,ds,window,open_radius", [
+    ((240, 320), 2, 7, 2), ((250, 333), 10, 7, 2), ((1080, 1920), 10, 7, 2),
+    ((120, 160), 1, 7, 2), ((1920, 1080), 10, 7, 2), ((2160, 3840), 20, 7, 2),
+    ((97, 203), 3, 7, 2), ((40, 50), 2, 7, 2),
+    ((250, 333), 10, 3, 2), ((250, 333), 10, 15, 2), ((250, 333), 10, 88, 2),
+    ((250, 333), 10, 130, 2),
+    ((250, 333), 10, 7, 0), ((250, 333), 10, 7, 1), ((250, 333), 10, 7, 7),
+    ((250, 333), 10, 7, 14),
+])
+def test_frontend_kernel_matches_plain(shape, ds, window, open_radius):
+    """Frames from 40x50 (level 1 padded past the image) to 4K, widths that
+    are no multiple of 16 or of ds, windows whose column sums need 32 bits
+    (130), open radii 0 to 14; the optional opened mask against
+    ``segment.open_mask``."""
     dev = cuda_device()
     rng = np.random.default_rng(1)
     grey = torch.from_numpy(noisy_blocks(rng, 2, *shape)).to(dev)
-    got = k1.threshold_open_pool(grey, 7, 2, ds)
-    ref = k1.plain(grey, 7, 2, ds)
-    for a, b in zip(got, ref):
+    got = k1.threshold_open_pool(grey, window, open_radius, ds, opened=True)
+    ref = k1.plain(grey, window, open_radius, ds)
+    ref += (segment.open_mask(~frontend.adaptive_threshold(grey, window), open_radius),)
+    for a, b in zip(got, ref, strict=True):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(k1.threshold_open_pool(grey, window, open_radius, ds), got))
+
+
+@pytest.mark.parametrize("shape,window,open_radius,ds", [
+    ((1080, 1920), 7, 2, 10), ((1920, 1080), 7, 2, 10), ((2160, 3840), 7, 2, 20),
+    ((120, 160), 7, 2, 1), ((97, 203), 7, 2, 3), ((40, 50), 7, 2, 2),
+    ((250, 333), 130, 2, 10), ((250, 333), 7, 7, 10), ((333, 250), 7, 14, 7),
+])
+def test_frontend_plan_covers_each_output_once(shape, window, open_radius, ds):
+    """The tiles of ``plan`` write every pixel, coarse cell and level-1
+    cell exactly once, keep coarse and level-1 cells whole, and fit in
+    shared memory."""
+    h, w = shape
+    th, tw = k1.plan(h, w, window, open_radius, ds)
+    assert th % ds == tw % ds == th % 2 == tw % 2 == 0
+    assert k1.smem_bytes(th, tw, window, open_radius) <= k1.SMEM_MAX
+    (hc, wc), (h1, w1) = k1._shapes(h, w, ds)
+    hits = [np.zeros(s, np.int32) for s in ((h, w), (hc, wc), (h1, w1))]
+    for ranges in k1.tiles(h, w, ds, th, tw):
+        for plane, ((ya, yb), (xa, xb)) in zip(hits, ranges):
+            plane[ya:yb, xa:xb] += 1
+    for plane in hits:
+        assert (plane == 1).all()
+
+
+def test_frontend_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError):
+        k1.plan(1080, 1920, 400, 2, 10)
+    with pytest.raises(ValueError):
+        k1.plan(1080, 1920, 7, 2, 0)
+    with pytest.raises(ValueError):
+        k1.plan(1080, 1920, 7, k1.MAX_OPEN_RADIUS + 1, 10)
 
 
 @pytest.mark.gpu
@@ -259,24 +304,51 @@ def test_portrait_detect_on_card_matches_cpu(kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("count", [1, 7, 4096])
-def test_warp_eval_kernel_matches_plain(count):
-    """Counts that are no multiple of the block; coordinates inside, in the
-    partial edge bands, beyond them and far outside."""
+@pytest.mark.parametrize("count,s", [(1, S), (7, S), (128, S), (4096, S), (128, 17), (1152, 17)])
+def test_warp_eval_kernel_matches_plain(count, s):
+    """Counts that are no multiple of the block, one sample chunk per
+    window and many (``chunk_size``), S^2 no multiple of a chunk;
+    coordinates inside, in the partial edge bands, on the window's edges,
+    beyond them and far outside."""
     dev = cuda_device()
     rng = np.random.default_rng(41)
     windows = rng.uniform(0, 255, size=(count, 64, 64)).astype(np.float32)
+    edges = [-1.0, -0.5, -1e-6, 0.0, 63.0, 63.25, 64.0 - 1e-5, 64.0]
 
     def coords():
-        u = rng.uniform(-1.5, 64.5, size=(count, S * S))
+        u = rng.uniform(-1.5, 64.5, size=(count, s * s))
         far = rng.random(u.shape) < 0.05
-        return np.where(far, rng.choice([-1e6, -3.0, 67.0, 1e6], u.shape), u).astype(np.float32)
+        u = np.where(far, rng.choice([-1e6, -3.0, 67.0, 1e6], u.shape), u)
+        edge = rng.random(u.shape) < 0.1
+        return np.where(edge, rng.choice(edges, u.shape), u).astype(np.float32)
 
     args = [torch.from_numpy(a).to(dev) for a in (windows, coords(), coords())]
     got = k8.warp_eval(*args)
     ref = k8.plain(*args)
-    assert got.shape == ref.shape == (count, S * S)
+    assert got.shape == ref.shape == (count, s * s)
     assert (got - ref).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("count", [1, 7, 128, 1152, 4096, 30000])
+@pytest.mark.parametrize("s", [17, 49, 64])
+def test_warp_eval_chunks_cover_each_sample_once(count, s):
+    """The kernel's grid (a block per window and chunk) evaluates every
+    sample once; split windows make at most ``TARGET_BLOCKS`` blocks, a few
+    windows chunks of one block, many windows one chunk each."""
+    s2 = s * s
+    chunk = k8.chunk_size(count, s2)
+    assert chunk > 0 and chunk % k8.BLOCK == 0
+    hits = np.zeros(s2, np.int32)
+    for c in range(-(-s2 // chunk)):  # blockIdx.y
+        hits[c * chunk : min(s2, (c + 1) * chunk)] += 1
+    assert (hits == 1).all()
+    blocks = -(-s2 // chunk) * count
+    if chunk < s2:
+        assert blocks <= k8.TARGET_BLOCKS
+    if count <= 8:
+        assert chunk == k8.BLOCK
+    if count >= k8.TARGET_BLOCKS:
+        assert chunk >= s2
 
 
 @pytest.mark.gpu
