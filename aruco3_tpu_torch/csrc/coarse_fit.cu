@@ -8,31 +8,51 @@
 // (a3_coarse_labels) is coarse_labels with fit_cfg=None (:872) and writes
 // the two label planes out.  Its specification is the XLA code it
 // reproduces: segment.label_planes (hole fill, outer CCL, depth-peeled
-// inner labels), segment.fit_quads on both label planes (size admission,
-// raster rank pool, top-k by size, centroid, extreme-point quad,
-// containment; fit_common.cuh) and the dilated inner footprint
-// _dilate3(labels2 < Hc*Wc).
+// inner labels), segment.fit_quads on both label planes (fit_common.cuh)
+// and the dilated inner footprint _dilate3(labels2 < Hc*Wc).
 //
 // Semantics kept exactly: every flood and CCL is round-limited with
 // synchronous rounds.  A flood round ORs the neighbours of the previous
 // plane, then transports along whole row runs, then whole column runs; a
 // CCL round takes the 4-neighbour min of the previous plane, then the full
-// row-run min, then the full column-run min.  A forward and a backward
-// serial scan give each cell the same full run min (or OR) the doubling
-// scan computes.  Ties: top-k by size takes the lower root, each masked
-// argmax the first cell.
+// row-run min, then the full column-run min.  Round limits are QuadParams'.
 //
-// What bounds it on an H100: latency.  A 108x192 grid is small; the
-// rounds (about 60 of them) are chains of dependent steps separated by
-// block barriers, and the run transports are serial per row and column,
-// written as uniform scans so that a warp's 32 rows never diverge.
-// Design: one block of 1024 threads per frame, so a batch of 128 frames
-// fills the card's 132 SMs once; the ten boolean planes the floods work
-// on live in shared memory when they fit (10 byte planes with an odd-word
-// row pitch, 212 KB at 1080p with ds = 10) and otherwise in global
-// scratch; the int32 label planes are global scratch (L2-resident).  The
-// fit gives each lane to one warp, which walks the plane with warp-shuffle
-// reductions.
+// What bounds it on an H100: latency.  At the default QuadParams a frame
+// takes 54 dependent rounds (45 flood, 9 CCL), each a chain of steps
+// separated by block barriers, on a grid (108x192) far too small to keep
+// an SM's issue slots busy.  Design: one block per frame, everything on
+// chip.
+//   * Flood planes are bit planes, 32 columns a word, rows of nw words at
+//     an odd word pitch (ten 108x192 planes: 30 KB).  A round is two
+//     barrier-separated steps: a thread per row takes the neighbour OR
+//     (word shifts with the neighbouring words' carries) and then the
+//     row-run transport as word arithmetic ((M + s) ^ M) & M | s with the
+//     add's carry running across the row's words, and the same on the
+//     bit-reversed row for the other direction; then a warp per word
+//     column transports along column runs, 32 columns at once.
+//   * CCL label planes are uint16_t in shared memory (the grid has fewer
+//     than 65,536 cells, so the sentinel hc*wc fits), at a row pitch of an
+//     odd number of words.  A round is two steps: a warp per row takes the
+//     4-neighbour min and the row-run min of its row, a warp per column the
+//     column-run min.  A cell is in the CCL's mask iff its label is below
+//     the sentinel, so the run scans read labels only.
+//   * Every run scan (flood columns, CCL rows and columns) gives each lane
+//     an odd number of consecutive cells (a column's 32 lanes then read 32
+//     banks), held in registers PC at a time so that their loads issue
+//     together; one pass gives the lane's run-end value, run-start value
+//     and whether the run passes through; a segmented Kogge-Stone scan over
+//     shuffles (five steps each way) joins the lanes; a forward and a
+//     backward pass write the results.
+//   * The fit (fit mode) is fit_common.cuh's fit_plane on the uint16_t
+//     planes; its member lists use the CCL's second plane.
+// Critical path at the defaults: 45 x 2 + 9 x 2 = 108 barrier steps, each
+// a chain of ~nw word steps (row transport) or three register passes and
+// ~20 dependent shuffles (run scans), plus each fit's ~30 barriers.
+// Grids too large for shared memory (or with 65,536 cells or more) run the
+// same body on int32 labels and planes in device scratch (coarse_layout
+// decides, and a3_coarse_layout tells the wrapper).  Threads per block
+// come from ops.fit.threads_per_block: 1,024 when the batch fits the
+// card's SMs once, fewer when several blocks share an SM.
 
 #include "fit_common.cuh"
 
@@ -42,24 +62,7 @@ using a3fit::FitOut;
 using a3fit::FitParams;
 using a3fit::FitPtrs;
 
-constexpr int THREADS = 1024;
-constexpr int N_U8_PLANES = 10;
-constexpr int N_INT_PLANES = 4;
-
-using FitSmem = a3fit::FitSmem<THREADS>;
-
-// Cell p = y * wc + x is the linear index the labels carry; byte planes
-// store it at y * pitch + x, with an odd number of 4-byte words per row so
-// that the 32 rows a warp walks at once fall in 32 different banks.
-struct Geo {
-  int hc, wc, p, pitch;
-};
-
-__host__ __device__ __forceinline__ int byte_pitch(int wc) { return (((wc + 3) / 4) | 1) * 4; }
-
-__device__ __forceinline__ int qof(int p, const Geo& g) {
-  return p + (p / g.wc) * (g.pitch - g.wc);
-}
+constexpr int N_PLANES = 10;
 
 struct Params {
   int k1, k2, kr1, kr2;
@@ -68,281 +71,551 @@ struct Params {
   FitParams fit;
 };
 
-__device__ __forceinline__ bool on_border(int p, const Geo& g) {
-  const int y = p / g.wc;
-  const int x = p - y * g.wc;
-  return y == 0 || y == g.hc - 1 || x == 0 || x == g.wc - 1;
-}
+// Grid geometry.  Bit planes: word j of row y (columns 32j..32j+31, bit i
+// = column 32j + i) at y * npw + j, npw = nw | 1; bits at and beyond wc
+// stay 0.  Label planes: cell (y, x) at y * lp + x.  Chunks: a lane of a
+// row warp owns cw consecutive cells, a lane of a column warp ch
+// consecutive rows (both odd).
+struct Geo {
+  int hc, wc, P, nw, npw, lp, cw, ch;
+  uint32_t last;  // valid bits of word nw - 1
+};
 
-__device__ __forceinline__ uint8_t dil3_at(const uint8_t* m, int p, const Geo& g) {
-  const int y = p / g.wc;
-  const int x = p - y * g.wc;
-  uint8_t v = 0;
-  for (int dy = -1; dy <= 1; ++dy) {
-    const int yy = y + dy;
-    if (yy < 0 || yy >= g.hc) continue;
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int xx = x + dx;
-      if (xx < 0 || xx >= g.wc) continue;
-      v |= m[yy * g.pitch + xx];
-    }
-  }
-  return v;
-}
+__host__ __device__ inline int odd_at_least(int n) { return n | 1; }
 
-// `reach` holds medium & seed on entry and the flood after `rounds`.
-__device__ void flood(uint8_t* reach, const uint8_t* med, uint8_t* tmp,
-                      int rounds, bool diag, const Geo& g) {
-  const int hc = g.hc, wc = g.wc, pw = g.pitch;
-  for (int it = 0; it < rounds; ++it) {
-    for (int p = threadIdx.x; p < g.p; p += blockDim.x) {
-      const int y = p / wc;
-      const int x = p - y * wc;
-      const int q = y * pw + x;
-      uint8_t v = reach[q];
-      if (y > 0) v |= reach[q - pw];
-      if (y < hc - 1) v |= reach[q + pw];
-      if (x > 0) v |= reach[q - 1];
-      if (x < wc - 1) v |= reach[q + 1];
-      if (diag) {
-        if (y > 0 && x > 0) v |= reach[q - pw - 1];
-        if (y > 0 && x < wc - 1) v |= reach[q - pw + 1];
-        if (y < hc - 1 && x > 0) v |= reach[q + pw - 1];
-        if (y < hc - 1 && x < wc - 1) v |= reach[q + pw + 1];
-      }
-      tmp[q] = v & med[q];
-    }
-    __syncthreads();
-    // Run transport: a forward scan leaves each cell the OR of its run up
-    // to it; a backward scan over those gives every cell its whole run's
-    // OR.  One uniform loop per pass: no divergence inside a warp.
-    for (int y = threadIdx.x; y < hc; y += blockDim.x) {
-      uint8_t* r = tmp + y * pw;
-      const uint8_t* m = med + y * pw;
-      uint8_t acc = 0;
-      for (int x = 0; x < wc; ++x) r[x] = acc = m[x] ? (acc | r[x]) : 0;
-      acc = 0;
-      for (int x = wc - 1; x >= 0; --x) r[x] = acc = m[x] ? (acc | r[x]) : 0;
-    }
-    __syncthreads();
-    for (int x = threadIdx.x; x < wc; x += blockDim.x) {
-      uint8_t acc = 0;
-      for (int y = 0; y < hc; ++y) {
-        const int q = y * pw + x;
-        reach[q] = acc = med[q] ? (acc | tmp[q]) : 0;
-      }
-      acc = 0;
-      for (int y = hc - 1; y >= 0; --y) {
-        const int q = y * pw + x;
-        reach[q] = acc = med[q] ? (acc | reach[q]) : 0;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Round-limited 4-connected CCL of `blk`; lbl is (re)initialised here.
-__device__ void ccl(int* lbl, const uint8_t* blk, int* tmpi, int rounds,
-                    const Geo& g) {
-  const int hc = g.hc, wc = g.wc, P = g.p, pw = g.pitch;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) lbl[p] = blk[qof(p, g)] ? p : P;
-  __syncthreads();
-  for (int it = 0; it < rounds; ++it) {
-    for (int p = threadIdx.x; p < P; p += blockDim.x) {
-      if (!blk[qof(p, g)]) { tmpi[p] = P; continue; }
-      const int y = p / wc;
-      const int x = p - y * wc;
-      int m = lbl[p];
-      if (y > 0) m = min(m, lbl[p - wc]);
-      if (y < hc - 1) m = min(m, lbl[p + wc]);
-      if (x > 0) m = min(m, lbl[p - 1]);
-      if (x < wc - 1) m = min(m, lbl[p + 1]);
-      tmpi[p] = m;
-    }
-    __syncthreads();
-    // Run mins by a forward and a backward scan, as in flood().
-    for (int y = threadIdx.x; y < hc; y += blockDim.x) {
-      int* r = tmpi + y * wc;
-      const uint8_t* m = blk + y * pw;
-      int acc = P;
-      for (int x = 0; x < wc; ++x) r[x] = acc = m[x] ? min(acc, r[x]) : P;
-      acc = P;
-      for (int x = wc - 1; x >= 0; --x) r[x] = acc = m[x] ? min(acc, r[x]) : P;
-    }
-    __syncthreads();
-    for (int x = threadIdx.x; x < wc; x += blockDim.x) {
-      int acc = P;
-      for (int y = 0; y < hc; ++y) {
-        lbl[y * wc + x] = acc = blk[y * pw + x] ? min(acc, tmpi[y * wc + x]) : P;
-      }
-      acc = P;
-      for (int y = hc - 1; y >= 0; --y) {
-        lbl[y * wc + x] = acc = blk[y * pw + x] ? min(acc, lbl[y * wc + x]) : P;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-coarse_kernel(const uint8_t* __restrict__ coarse, FitPtrs fit1, FitPtrs fit2,
-              uint8_t* inner_coarse, int* labels1, int* labels2, int* scratch_i,
-              uint8_t* scratch_u8, int hc, int wc, Params pr, int u8_in_smem) {
-  extern __shared__ uint8_t dyn[];
-  __shared__ FitSmem fs;
-  const int b = blockIdx.x;
+__host__ __device__ inline Geo make_geo(int hc, int wc, bool smem) {
   Geo g;
   g.hc = hc;
   g.wc = wc;
-  g.p = hc * wc;
-  g.pitch = byte_pitch(wc);
-  const int P = g.p;
-  const int Q = hc * g.pitch;  // bytes of one byte plane
-  const uint8_t* C = coarse + static_cast<size_t>(b) * P;
-  uint8_t* base8 = u8_in_smem ? dyn : scratch_u8 + static_cast<size_t>(b) * N_U8_PLANES * Q;
-  uint8_t* WHITE = base8;
-  uint8_t* R = base8 + Q;
-  uint8_t* TMP = base8 + 2 * Q;
-  uint8_t* F1 = base8 + 3 * Q;
-  uint8_t* BG = base8 + 4 * Q;     // later: the CCL mask of a peel depth
-  uint8_t* M2 = base8 + 5 * Q;     // first: the coarse mask itself
-  uint8_t* KNOWN = base8 + 6 * Q;
-  uint8_t* LEV = base8 + 7 * Q;
-  uint8_t* OK = base8 + 8 * Q;     // later: the complement of a level
-  uint8_t* REM = base8 + 9 * Q;
-  int* basei = scratch_i + static_cast<size_t>(b) * N_INT_PLANES * P;
-  int* LABA = basei;
-  // Labels mode (labels1 given): no fit; the inner plane is built in place
-  // in its output and the outer plane copied out before the peel's CCLs
-  // reuse LABA.
-  const bool labels_only = labels1 != nullptr;
-  int* LAB2 = labels_only ? labels2 + static_cast<size_t>(b) * P : basei + P;
-  int* TMPI = basei + 2 * P;
-  int* CNT = basei + 3 * P;
+  g.P = hc * wc;
+  g.nw = (wc + 31) / 32;
+  g.npw = odd_at_least(g.nw);
+  g.lp = smem ? 2 * odd_at_least((wc + 1) / 2) : wc;
+  g.cw = odd_at_least((wc + 31) / 32);
+  g.ch = odd_at_least((hc + 31) / 32);
+  g.last = (wc & 31) ? (1u << (wc & 31)) - 1u : 0xffffffffu;
+  return g;
+}
+
+// Where a frame's planes live: on chip (the ten bit planes, two uint16_t
+// label planes and the fit scratch in shared memory), when the grid has
+// fewer than 65,536 cells and they fit; else in device scratch as int32
+// (two label planes, the fit scratch, the bit planes).  Fit mode keeps
+// the inner label plane in device scratch either way (first in a frame's
+// share).  fit_ints: the fit scratch (0 in labels mode).
+a3fit::Layout coarse_layout(int hc, int wc, int fit_ints) {
+  const long long lab2 = fit_ints ? static_cast<long long>(hc) * wc : 0;
+  const Geo s = make_geo(hc, wc, true);
+  const long long smem = static_cast<long long>(N_PLANES) * hc * s.npw * 4 +
+                         2LL * hc * s.lp * 2 + 4LL * fit_ints;
+  if (s.P < 65536 && smem <= a3fit::SMEM_MAX) return {true, smem, lab2};
+  return {false, 0, lab2 + 2LL * s.P + fit_ints + static_cast<long long>(N_PLANES) * hc * s.npw};
+}
+
+__device__ __forceinline__ uint32_t wmask(const Geo& g, int j) {
+  return j == g.nw - 1 ? g.last : 0xffffffffu;
+}
+
+__device__ __forceinline__ uint32_t border_word(const Geo& g, int y, int j) {
+  if (y == 0 || y == g.hc - 1) return wmask(g, j);
+  uint32_t w = j == 0 ? 1u : 0u;
+  if (j == g.nw - 1) w |= 1u << ((g.wc - 1) & 31);
+  return w;
+}
+
+__device__ __forceinline__ bool bit(const uint32_t* X, const Geo& g, int y, int x) {
+  return (X[y * g.npw + (x >> 5)] >> (x & 31)) & 1u;
+}
+
+// Each cell x of a word takes its own bit and those of x - 1 and x + 1.
+__device__ __forceinline__ uint32_t hdil(uint32_t left, uint32_t mid, uint32_t right) {
+  return mid | (mid << 1) | (left >> 31) | (mid >> 1) | (right << 31);
+}
+
+__device__ __forceinline__ uint32_t vor(const uint32_t* X, const Geo& g, int y, int j) {
+  uint32_t v = X[y * g.npw + j];
+  if (y > 0) v |= X[(y - 1) * g.npw + j];
+  if (y < g.hc - 1) v |= X[(y + 1) * g.npw + j];
+  return v;
+}
+
+// Word (y, j) of the 3x3 dilation of X.
+__device__ __forceinline__ uint32_t dil3(const uint32_t* X, const Geo& g, int y, int j) {
+  const uint32_t l = j > 0 ? vor(X, g, y, j - 1) : 0u;
+  const uint32_t r = j < g.nw - 1 ? vor(X, g, y, j + 1) : 0u;
+  return hdil(l, vor(X, g, y, j), r) & wmask(g, j);
+}
+
+// f(q, y, j) for every word of a plane (q = y * npw + j).
+template <class F>
+__device__ __forceinline__ void each_word(const Geo& g, F f) {
+  for (int i = threadIdx.x; i < g.hc * g.nw; i += blockDim.x) {
+    const int y = i / g.nw;
+    const int j = i - y * g.nw;
+    f(y * g.npw + j, y, j);
+  }
+}
+
+// f(y, x) for every cell.
+template <class F>
+__device__ __forceinline__ void each_cell(const Geo& g, F f) {
+  for (int p = threadIdx.x; p < g.P; p += blockDim.x) {
+    const int y = p / g.wc;
+    f(y, p - y * g.wc);
+  }
+}
+
+// out[y, j] bit i = pred(y, 32j + i): a warp a word, one ballot.
+template <class F>
+__device__ __forceinline__ void pack(uint32_t* out, const Geo& g, F pred) {
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < g.hc * g.nw; i += blockDim.x >> 5) {
+    const int y = i / g.nw;
+    const int j = i - y * g.nw;
+    const int x = 32 * j + lane;
+    const uint32_t w = __ballot_sync(0xffffffffu, x < g.wc && pred(y, x));
+    if (lane == 0) out[y * g.npw + j] = w;
+  }
+}
+
+// Row-run transport of the seeds t (within m) toward higher columns: the
+// add's carry runs from each seed through the rest of its run.
+__device__ __forceinline__ uint32_t run_up(uint32_t m, uint32_t t, uint32_t& carry) {
+  const unsigned long long sum = static_cast<unsigned long long>(m) + t + carry;
+  carry = static_cast<uint32_t>(sum >> 32);
+  return ((static_cast<uint32_t>(sum) ^ m) & m) | t;
+}
+
+// Segmented Kogge-Stone across a warp's lanes, 32 bit columns at once: v
+// is a lane's run-end value, p the columns its whole chunk passes through.
+// Returns the carry into the lane from the lanes before it (up) or after
+// it (down).
+__device__ __forceinline__ uint32_t carry_in_up(uint32_t v, uint32_t p) {
+  const int lane = threadIdx.x & 31;
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t ov = __shfl_up_sync(0xffffffffu, v, d);
+    const uint32_t op = __shfl_up_sync(0xffffffffu, p, d);
+    if (lane >= d) {
+      v |= p & ov;
+      p &= op;
+    }
+  }
+  const uint32_t c = __shfl_up_sync(0xffffffffu, v, 1);
+  return lane == 0 ? 0u : c;
+}
+
+__device__ __forceinline__ uint32_t carry_in_down(uint32_t v, uint32_t p) {
+  const int lane = threadIdx.x & 31;
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t ov = __shfl_down_sync(0xffffffffu, v, d);
+    const uint32_t op = __shfl_down_sync(0xffffffffu, p, d);
+    if (lane + d < 32) {
+      v |= p & ov;
+      p &= op;
+    }
+  }
+  const uint32_t c = __shfl_down_sync(0xffffffffu, v, 1);
+  return lane == 31 ? 0u : c;
+}
+
+// The same for run mins with a flag per lane (the whole chunk in the
+// mask); the identity is `sent`.
+__device__ __forceinline__ int min_in_up(int v, bool p, int sent) {
+  const int lane = threadIdx.x & 31;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int ov = __shfl_up_sync(0xffffffffu, v, d);
+    const bool op = __shfl_up_sync(0xffffffffu, p, d);
+    if (lane >= d) {
+      if (p) v = min(v, ov);
+      p = p && op;
+    }
+  }
+  const int c = __shfl_up_sync(0xffffffffu, v, 1);
+  return lane == 0 ? sent : c;
+}
+
+__device__ __forceinline__ int min_in_down(int v, bool p, int sent) {
+  const int lane = threadIdx.x & 31;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int ov = __shfl_down_sync(0xffffffffu, v, d);
+    const bool op = __shfl_down_sync(0xffffffffu, p, d);
+    if (lane + d < 32) {
+      if (p) v = min(v, ov);
+      p = p && op;
+    }
+  }
+  const int c = __shfl_down_sync(0xffffffffu, v, 1);
+  return lane == 31 ? sent : c;
+}
+
+// Rows (or cells) a lane holds in registers at once in the run scans, so
+// that their loads issue together.
+constexpr int PC = 8;
+
+// `R` holds medium & seed on entry and the flood after `rounds`; T is
+// scratch.  Ends with a barrier.
+__device__ void flood(uint32_t* R, const uint32_t* M, uint32_t* T, int rounds, bool diag,
+                      const Geo& g) {
+  const int lane = threadIdx.x & 31;
+  const int y0 = min(g.hc, lane * g.ch), y1 = min(g.hc, y0 + g.ch);
+  for (int it = 0; it < rounds; ++it) {
+    // Neighbour OR and row runs: a thread a row.
+    for (int y = threadIdx.x; y < g.hc; y += blockDim.x) {
+      const uint32_t* __restrict__ r = R + y * g.npw;
+      const uint32_t* __restrict__ up = y > 0 ? r - g.npw : nullptr;
+      const uint32_t* __restrict__ dn = y < g.hc - 1 ? r + g.npw : nullptr;
+      const uint32_t* __restrict__ m = M + y * g.npw;
+      uint32_t* __restrict__ t = T + y * g.npw;
+      auto v = [&](int j) -> uint32_t {
+        if (j < 0 || j >= g.nw) return 0u;
+        uint32_t w = r[j];
+        if (diag) {
+          if (up) w |= up[j];
+          if (dn) w |= dn[j];
+        }
+        return w;
+      };
+      uint32_t prev = 0u, cur = v(0), carry = 0u;
+      for (int j = 0; j < g.nw; ++j) {
+        const uint32_t next = v(j + 1);
+        uint32_t n = hdil(prev, cur, next);
+        if (!diag) {
+          if (up) n |= up[j];
+          if (dn) n |= dn[j];
+        }
+        const uint32_t mm = m[j];
+        t[j] = run_up(mm, n & mm, carry);
+        prev = cur;
+        cur = next;
+      }
+      carry = 0u;
+      for (int j = g.nw - 1; j >= 0; --j)
+        t[j] = __brev(run_up(__brev(m[j]), __brev(t[j]), carry));
+    }
+    __syncthreads();
+    // Column runs: a warp a word column, a lane ch rows.  One pass gives
+    // the lane's run-end value f, run-start value b and pass-through p.
+    for (int j = threadIdx.x >> 5; j < g.nw; j += blockDim.x >> 5) {
+      uint32_t f = 0u, b = 0u, p = y0 < y1 ? 0xffffffffu : 0u;
+      for (int ys = y0; ys < y1; ys += PC) {
+        uint32_t mm[PC], tt[PC];
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          const int q = (ys + i) * g.npw + j;
+          mm[i] = ys + i < y1 ? M[q] : 0xffffffffu;
+          tt[i] = ys + i < y1 ? T[q] : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          f = mm[i] & (tt[i] | f);
+          p &= mm[i];
+          b |= tt[i] & p;
+        }
+      }
+      f = carry_in_up(f, p);
+      b = carry_in_down(b, p);
+      for (int ys = y0; ys < y1; ys += PC) {
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          const int q = (ys + i) * g.npw + j;
+          if (ys + i < y1) {
+            f = M[q] & (T[q] | f);
+            R[q] = f;
+          }
+        }
+      }
+      // Backward over the forward values: each cell then holds its whole
+      // run's OR.
+      for (int ye = y1; ye > y0; ye -= PC) {
+#pragma unroll
+        for (int i = 1; i <= PC; ++i) {
+          const int q = (ye - i) * g.npw + j;
+          if (ye - i >= y0) {
+            b = M[q] & (R[q] | b);
+            R[q] = b;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// A lane's chunk of a run scan over n cells at src[i * stride], i in
+// [i0, i1): one pass gives its run-end min f, run-start min b and whether
+// every cell is in the mask (value below `sent`); the chunks are joined
+// across the warp; then a forward and a backward pass write every cell's
+// whole run min to dst (which may be src).
+template <class L>
+__device__ __forceinline__ void run_min(const L* src, L* dst, int stride, int i0, int i1,
+                                        int sent) {
+  int f = sent, b = sent;
+  bool all = i0 < i1, lead = true;
+  for (int is = i0; is < i1; is += PC) {
+    int v[PC];
+#pragma unroll
+    for (int k = 0; k < PC; ++k) v[k] = is + k < i1 ? static_cast<int>(src[(is + k) * stride]) : sent;
+#pragma unroll
+    for (int k = 0; k < PC; ++k) {
+      if (is + k >= i1) break;
+      const bool in = v[k] < sent;
+      f = in ? min(f, v[k]) : sent;
+      all = all && in;
+      lead = lead && in;
+      if (lead) b = min(b, v[k]);
+    }
+  }
+  f = min_in_up(f, all, sent);
+  b = min_in_down(b, all, sent);
+  for (int is = i0; is < i1; is += PC) {
+    int v[PC];
+#pragma unroll
+    for (int k = 0; k < PC; ++k) v[k] = is + k < i1 ? static_cast<int>(src[(is + k) * stride]) : sent;
+#pragma unroll
+    for (int k = 0; k < PC; ++k) {
+      if (is + k >= i1) break;
+      f = v[k] < sent ? min(f, v[k]) : sent;
+      dst[(is + k) * stride] = static_cast<L>(f);
+    }
+  }
+  for (int ie = i1; ie > i0; ie -= PC) {
+    int v[PC];
+#pragma unroll
+    for (int k = 1; k <= PC; ++k) v[k - 1] = ie - k >= i0 ? static_cast<int>(dst[(ie - k) * stride]) : sent;
+#pragma unroll
+    for (int k = 1; k <= PC; ++k) {
+      if (ie - k < i0) break;
+      b = v[k - 1] < sent ? min(b, v[k - 1]) : sent;
+      dst[(ie - k) * stride] = static_cast<L>(b);
+    }
+  }
+}
+
+// Round-limited 4-connected CCL of `blk` into lbl (initialised here); tmp
+// is a second label plane.  A cell is in `blk` iff its label is below the
+// sentinel P, so the run scans read no mask.  Ends with a barrier.
+template <class L>
+__device__ void ccl(L* lbl, const uint32_t* blk, L* tmp, int rounds, const Geo& g) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int P = g.P, lp = g.lp;
+  each_cell(g, [&](int y, int x) {
+    lbl[y * lp + x] = static_cast<L>(bit(blk, g, y, x) ? y * g.wc + x : P);
+  });
+  __syncthreads();
+  const int x0 = min(g.wc, lane * g.cw), x1 = min(g.wc, x0 + g.cw);
+  const int y0 = min(g.hc, lane * g.ch), y1 = min(g.hc, y0 + g.ch);
+  for (int it = 0; it < rounds; ++it) {
+    // 4-neighbour min into tmp, then its row-run min: a warp a row.
+    for (int y = warp; y < g.hc; y += nwarps) {
+      const L* __restrict__ r = lbl + y * lp;
+      L* __restrict__ t = tmp + y * lp;
+      const uint32_t* brow = blk + y * g.npw;
+      for (int xs = x0; xs < x1; xs += PC) {
+        int m[PC];
+#pragma unroll
+        for (int k = 0; k < PC; ++k) {
+          const int x = xs + k;
+          m[k] = P;
+          if (x < x1 && ((brow[x >> 5] >> (x & 31)) & 1u)) {
+            int v = r[x];
+            if (y > 0) v = min(v, static_cast<int>(r[x - lp]));
+            if (y < g.hc - 1) v = min(v, static_cast<int>(r[x + lp]));
+            if (x > 0) v = min(v, static_cast<int>(r[x - 1]));
+            if (x < g.wc - 1) v = min(v, static_cast<int>(r[x + 1]));
+            m[k] = v;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < PC; ++k)
+          if (xs + k < x1) t[xs + k] = static_cast<L>(m[k]);
+      }
+      run_min(t, t, 1, x0, x1, P);
+    }
+    __syncthreads();
+    // Column-run min: a warp a column.
+    for (int x = warp; x < g.wc; x += nwarps) run_min(tmp + x, lbl + x, lp, y0, y1, P);
+    __syncthreads();
+  }
+}
+
+struct Args {
+  const uint8_t* coarse;
+  FitPtrs fit1, fit2;
+  uint8_t* inner_coarse;
+  int* labels1;  // labels mode: the outputs; nullptr in fit mode
+  int* labels2;
+  int* scratch;  // scratch_ints per frame
+  size_t frame_ints;
+  int hc, wc;
+  Params pr;
+};
+
+// L = uint16_t: planes, labels and fit scratch in shared memory; L = int:
+// in device scratch.
+template <class L>
+__global__ void __launch_bounds__(1024) coarse_kernel(Args a) {
+  extern __shared__ __align__(16) uint32_t dyn[];
+  constexpr bool smem = sizeof(L) == 2;
+  const Params& pr = a.pr;
+  const int b = blockIdx.x;
+  const Geo g = make_geo(a.hc, a.wc, smem);
+  const int P = g.P;
+  const bool labels_only = a.labels1 != nullptr;
+  const int fit_ints = labels_only ? 0 : a3fit::scratch_ints(max(pr.kr1, pr.kr2), g.hc, g.wc);
+  const size_t pw = static_cast<size_t>(g.hc) * g.npw;  // words of a bit plane
+  int* fs = a.scratch + static_cast<size_t>(b) * a.frame_ints;
+  int* LAB2 = labels_only ? a.labels2 + static_cast<size_t>(b) * P : fs;
+  if (!labels_only) fs += P;
+  uint32_t* planes;
+  L* LABA;
+  int* fit_base;
+  if (smem) {
+    planes = dyn;
+    LABA = reinterpret_cast<L*>(dyn + N_PLANES * pw);
+    fit_base = reinterpret_cast<int*>(LABA + 2 * g.hc * g.lp);
+  } else {
+    LABA = reinterpret_cast<L*>(fs);
+    fit_base = fs + 2 * P;
+    planes = reinterpret_cast<uint32_t*>(fit_base + fit_ints);
+  }
+  L* TMPI = LABA + g.hc * g.lp;
+  uint32_t* WHITE = planes;
+  uint32_t* R = planes + pw;
+  uint32_t* TMP = planes + 2 * pw;
+  uint32_t* F1 = planes + 3 * pw;
+  uint32_t* BG = planes + 4 * pw;     // later: the CCL mask of a peel depth
+  uint32_t* M2 = planes + 5 * pw;     // first: the coarse mask itself
+  uint32_t* KNOWN = planes + 6 * pw;
+  uint32_t* LEV = planes + 7 * pw;
+  uint32_t* OK = planes + 8 * pw;     // later: the complement of a level
+  uint32_t* REM = planes + 9 * pw;
+  const uint8_t* C = a.coarse + static_cast<size_t>(b) * P;
+  const a3fit::FitScratch fsc = a3fit::FitScratch::carve(fit_base, max(pr.kr1, pr.kr2), g.hc, g.wc);
+  const a3fit::Twins none = {nullptr, nullptr, nullptr, 0};
 
   // Outer pass: fill_holes, then the CCL of the filled plane.
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int q = qof(p, g);
-    const uint8_t w = !C[p];
+  pack(M2, g, [&](int y, int x) { return C[y * g.wc + x] != 0; });
+  __syncthreads();
+  each_word(g, [&](int q, int y, int j) {
+    const uint32_t w = ~M2[q] & wmask(g, j);
     WHITE[q] = w;
-    R[q] = w && on_border(p, g);
-    M2[q] = C[p];
-  }
+    R[q] = w & border_word(g, y, j);
+  });
   __syncthreads();
   flood(R, WHITE, TMP, pr.fill_rounds, true, g);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int q = qof(p, g);
-    F1[q] = M2[q] | (WHITE[q] & !R[q]);
-  }
+  each_word(g, [&](int q, int, int) { F1[q] = M2[q] | (WHITE[q] & ~R[q]); });
   __syncthreads();
   ccl(LABA, F1, TMPI, pr.ccl_rounds, g);
-  const a3fit::Twins none = {nullptr, nullptr, nullptr, 0};
   if (labels_only) {
-    int* L1 = labels1 + static_cast<size_t>(b) * P;
-    for (int p = threadIdx.x; p < P; p += blockDim.x) L1[p] = LABA[p];
+    int* L1 = a.labels1 + static_cast<size_t>(b) * P;
+    each_cell(g, [&](int y, int x) { L1[y * g.wc + x] = LABA[y * g.lp + x]; });
     if (pr.k2 <= 0) {
-      for (int p = threadIdx.x; p < P; p += blockDim.x) LAB2[p] = P;
+      each_cell(g, [&](int y, int x) { LAB2[y * g.wc + x] = P; });
       return;
     }
   } else {
-    a3fit::fit_plane(LABA, hc, wc, pr.k1, pr.kr1, fit1.frame(b, pr.k1), CNT, fs, pr.fit, none);
+    a3fit::fit_plane(a3fit::Labels<L>{LABA, g.hc, g.wc, g.lp}, pr.k1, pr.kr1,
+                     a.fit1.frame(b, pr.k1), fsc, TMPI, pr.fit, none);
     if (pr.k2 <= 0) {
-      uint8_t* IC = inner_coarse + static_cast<size_t>(b) * P;
+      uint8_t* IC = a.inner_coarse + static_cast<size_t>(b) * P;
       for (int p = threadIdx.x; p < P; p += blockDim.x) IC[p] = 0;
       return;
     }
   }
 
   // Inner pass (segment.label_planes): background, known outside, depth 0.
-  for (int p = threadIdx.x; p < P; p += blockDim.x) BG[qof(p, g)] = C[p] && on_border(p, g);
+  each_word(g, [&](int q, int y, int j) { BG[q] = M2[q] & border_word(g, y, j); });
   __syncthreads();
   flood(BG, M2, TMP, pr.bg_rounds, false, g);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int q = qof(p, g);
-    M2[q] = M2[q] & !BG[q];
-    KNOWN[q] = WHITE[q] & (on_border(p, g) | dil3_at(BG, p, g));
-  }
+  each_word(g, [&](int q, int y, int j) {
+    M2[q] &= ~BG[q];
+    KNOWN[q] = WHITE[q] & (border_word(g, y, j) | dil3(BG, g, y, j));
+  });
   __syncthreads();
   flood(KNOWN, WHITE, TMP, pr.fill_rounds, true, g);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int q = qof(p, g);
-    LEV[q] = M2[q] & dil3_at(KNOWN, p, g);
-  }
+  each_word(g, [&](int q, int y, int j) { LEV[q] = M2[q] & dil3(KNOWN, g, y, j); });
   __syncthreads();
   flood(LEV, M2, TMP, pr.inner_flood_rounds, false, g);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int q = qof(p, g);
-    OK[q] = LEV[q] && LABA[p] == p;
-  }
+  pack(OK, g, [&](int y, int x) {
+    return bit(LEV, g, y, x) && static_cast<int>(LABA[y * g.lp + x]) == y * g.wc + x;
+  });
   __syncthreads();
   flood(OK, F1, TMP, pr.ccl_rounds, false, g);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int q = qof(p, g);
-    const uint8_t ok = OK[q] & LEV[q];
-    LAB2[p] = ok ? LABA[p] : P;
-    REM[q] = M2[q] & !ok;
-    KNOWN[q] = KNOWN[q] | (dil3_at(LEV, p, g) & WHITE[q]);
-  }
+  each_cell(g, [&](int y, int x) {
+    const bool ok = bit(OK, g, y, x) && bit(LEV, g, y, x);
+    LAB2[y * g.wc + x] = ok ? static_cast<int>(LABA[y * g.lp + x]) : P;
+  });
+  each_word(g, [&](int q, int y, int j) {
+    REM[q] = M2[q] & ~(OK[q] & LEV[q]);
+    KNOWN[q] |= dil3(LEV, g, y, j) & WHITE[q];
+  });
   __syncthreads();
   flood(KNOWN, WHITE, TMP, pr.inner_flood_rounds, true, g);
 
-  uint8_t* NOTLEV = OK;
-  uint8_t* BLK = BG;
+  uint32_t* NOTLEV = OK;
+  uint32_t* BLK = BG;
   for (int depth = 1; depth < pr.inner_depths; ++depth) {
-    int any = 0;
-    for (int p = threadIdx.x; p < P; p += blockDim.x) any |= REM[qof(p, g)];
-    if (!__syncthreads_or(any)) break;  // an exhausted peel changes nothing
-    for (int p = threadIdx.x; p < P; p += blockDim.x) {
-      const int q = qof(p, g);
-      LEV[q] = REM[q] & dil3_at(KNOWN, p, g);
-    }
+    uint32_t any = 0u;
+    each_word(g, [&](int q, int, int) { any |= REM[q]; });
+    if (!__syncthreads_or(any != 0u)) break;  // an exhausted peel changes nothing
+    each_word(g, [&](int q, int y, int j) { LEV[q] = REM[q] & dil3(KNOWN, g, y, j); });
     __syncthreads();
     flood(LEV, REM, TMP, pr.inner_flood_rounds, false, g);
-    for (int p = threadIdx.x; p < P; p += blockDim.x) {
-      const int q = qof(p, g);
-      NOTLEV[q] = !LEV[q];
-      R[q] = KNOWN[q] & !LEV[q];
-    }
+    each_word(g, [&](int q, int, int j) {
+      NOTLEV[q] = ~LEV[q] & wmask(g, j);
+      R[q] = KNOWN[q] & ~LEV[q];
+    });
     __syncthreads();
     flood(R, NOTLEV, TMP, pr.inner_fill_rounds, true, g);
-    for (int p = threadIdx.x; p < P; p += blockDim.x) {
-      const int q = qof(p, g);
-      BLK[q] = !R[q];
-    }
+    each_word(g, [&](int q, int, int j) { BLK[q] = ~R[q] & wmask(g, j); });
     __syncthreads();
     ccl(LABA, BLK, TMPI, pr.inner_ccl_rounds, g);
-    for (int p = threadIdx.x; p < P; p += blockDim.x) {
-      const int q = qof(p, g);
-      if (LEV[q]) LAB2[p] = LABA[p];
-      REM[q] = REM[q] & !LEV[q];
-      KNOWN[q] = KNOWN[q] | (dil3_at(LEV, p, g) & WHITE[q]);
-    }
+    each_cell(g, [&](int y, int x) {
+      if (bit(LEV, g, y, x)) LAB2[y * g.wc + x] = LABA[y * g.lp + x];
+    });
+    each_word(g, [&](int q, int y, int j) {
+      REM[q] &= ~LEV[q];
+      KNOWN[q] |= dil3(LEV, g, y, j) & WHITE[q];
+    });
     __syncthreads();
     flood(KNOWN, WHITE, TMP, pr.inner_flood_rounds, true, g);
   }
 
   if (labels_only) return;
-  a3fit::fit_plane(LAB2, hc, wc, pr.k2, pr.kr2, fit2.frame(b, pr.k2), CNT, fs, pr.fit, none);
-  uint8_t* IC = inner_coarse + static_cast<size_t>(b) * P;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) TMP[qof(p, g)] = LAB2[p] < P;
+  // The inner plane back on chip for its fit (LABA is free now).
+  each_cell(g, [&](int y, int x) { LABA[y * g.lp + x] = static_cast<L>(LAB2[y * g.wc + x]); });
   __syncthreads();
-  for (int p = threadIdx.x; p < P; p += blockDim.x) IC[p] = dil3_at(TMP, p, g);
+  a3fit::fit_plane(a3fit::Labels<L>{LABA, g.hc, g.wc, g.lp}, pr.k2, pr.kr2,
+                   a.fit2.frame(b, pr.k2), fsc, TMPI, pr.fit, none);
+  pack(TMP, g, [&](int y, int x) { return static_cast<int>(LABA[y * g.lp + x]) < P; });
+  __syncthreads();
+  uint8_t* IC = a.inner_coarse + static_cast<size_t>(b) * P;
+  each_cell(g, [&](int y, int x) {
+    IC[y * g.wc + x] = (dil3(TMP, g, y, x >> 5) >> (x & 31)) & 1u;
+  });
 }
 
-// Shared memory the u8 planes may take beside the fit's static arrays.
-constexpr size_t kSmemBudget = 227 * 1024 - sizeof(FitSmem) - 1024;
+template <class K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
 
-int launch(const uint8_t* coarse, FitPtrs fit1, FitPtrs fit2, uint8_t* inner_coarse,
-           int* labels1, int* labels2, int* scratch_i, uint8_t* scratch_u8, int B, int hc,
-           int wc, const Params& pr, cudaStream_t stream) {
-  const size_t u8_bytes = static_cast<size_t>(N_U8_PLANES) * hc * byte_pitch(wc);
-  const int in_smem = u8_bytes <= kSmemBudget;
-  const size_t smem = in_smem ? u8_bytes : 0;
-  cudaError_t e = cudaFuncSetAttribute(coarse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  coarse_kernel<<<B, THREADS, smem, stream>>>(coarse, fit1, fit2, inner_coarse, labels1, labels2,
-                                              scratch_i, scratch_u8, hc, wc, pr, in_smem);
+// The fit scratch of a rank pool of kr (0: labels mode, no fit).
+int fit_scratch(int kr, int hc, int wc) { return kr > 0 ? a3fit::scratch_ints(kr, hc, wc) : 0; }
+
+int launch(Args a, int B, int threads, long long scratch_per_frame, cudaStream_t stream) {
+  const a3fit::Layout l = coarse_layout(a.hc, a.wc, fit_scratch(max(a.pr.kr1, a.pr.kr2), a.hc, a.wc));
+  if (threads % 32 != 0 || threads < 64 || threads > 1024 || scratch_per_frame < l.scratch)
+    return cudaErrorInvalidValue;
+  a.frame_ints = static_cast<size_t>(scratch_per_frame);
+  if (l.in_smem) {
+    cudaError_t e = set_smem(coarse_kernel<uint16_t>, static_cast<size_t>(l.smem));
+    if (e != cudaSuccess) return e;
+    coarse_kernel<uint16_t><<<B, threads, l.smem, stream>>>(a);
+  } else {
+    coarse_kernel<int><<<B, threads, 0, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -357,43 +630,62 @@ Params round_params(int fill_rounds, int ccl_rounds, int bg_rounds, int inner_de
 
 }  // namespace
 
+// out[0], out[1]: bytes of shared memory a block and ints of device
+// scratch a frame that kernel 2 takes for an hc x wc grid, in fit mode
+// with a rank pool of kr (the larger of the two), in labels mode if kr is 0.
+extern "C" int a3_coarse_layout(int hc, int wc, int kr, long long* out) {
+  return a3fit::put_layout(coarse_layout(hc, wc, fit_scratch(kr, hc, wc)), out);
+}
+
 // Fit mode: coarse (B,hc,wc) 0/1 bytes -> both fits and inner_coarse.
-// Scratch per frame: 4*hc*wc ints and 10*hc*(wc+8) bytes (the bytes go
-// unused when the planes fit in shared memory).  Returns
-// cudaGetLastError().
+// threads: a multiple of 32 in [64, 1024]; scratch: scratch_per_frame
+// ints a frame, at least a3_coarse_layout's.  Returns cudaGetLastError().
 extern "C" int a3_coarse_fit(
     const uint8_t* coarse, float* quads1, uint8_t* valid1, int* roots1, float* cents1,
     int* sizes1, int* qual1, float* quads2, uint8_t* valid2, int* roots2,
-    float* cents2, int* sizes2, int* qual2, uint8_t* inner_coarse, int* scratch_i,
-    uint8_t* scratch_u8, int B, int hc, int wc, int ds, int k1, int k2, int kr1,
+    float* cents2, int* sizes2, int* qual2, uint8_t* inner_coarse, int* scratch,
+    int B, int hc, int wc, int ds, int k1, int k2, int kr1,
     int kr2, int fill_rounds, int ccl_rounds, int bg_rounds, int inner_depths,
     int inner_flood_rounds, int inner_fill_rounds, int inner_ccl_rounds,
-    float slack, float min_containment, int min_px, cudaStream_t stream) {
-  if (k1 > a3fit::K_MAX || k2 > a3fit::K_MAX || kr1 > a3fit::KR_MAX || kr2 > a3fit::KR_MAX)
+    float slack, float min_containment, int min_px, int threads, long long scratch_per_frame,
+    cudaStream_t stream) {
+  if (k1 <= 0 || k1 > a3fit::K_MAX || k2 > a3fit::K_MAX || kr1 > a3fit::KR_MAX ||
+      kr2 > a3fit::KR_MAX || k1 > kr1 || (k2 > 0 && k2 > kr2))
     return cudaErrorInvalidValue;
-  Params pr = round_params(fill_rounds, ccl_rounds, bg_rounds, inner_depths,
-                           inner_flood_rounds, inner_fill_rounds, inner_ccl_rounds);
-  pr.k1 = k1; pr.k2 = k2; pr.kr1 = kr1; pr.kr2 = kr2;
-  pr.fit.ds = ds; pr.fit.min_px = min_px; pr.fit.slack = slack;
-  pr.fit.min_containment = min_containment;
-  const FitPtrs fit1 = {quads1, valid1, roots1, cents1, sizes1, qual1};
-  const FitPtrs fit2 = {quads2, valid2, roots2, cents2, sizes2, qual2};
-  return launch(coarse, fit1, fit2, inner_coarse, nullptr, nullptr, scratch_i, scratch_u8, B,
-                hc, wc, pr, stream);
+  Args a = {};
+  a.pr = round_params(fill_rounds, ccl_rounds, bg_rounds, inner_depths, inner_flood_rounds,
+                      inner_fill_rounds, inner_ccl_rounds);
+  a.pr.k1 = k1; a.pr.k2 = k2; a.pr.kr1 = kr1; a.pr.kr2 = kr2;
+  a.pr.fit.ds = ds; a.pr.fit.min_px = min_px; a.pr.fit.slack = slack;
+  a.pr.fit.min_containment = min_containment;
+  a.coarse = coarse;
+  a.fit1 = {quads1, valid1, roots1, cents1, sizes1, qual1};
+  a.fit2 = {quads2, valid2, roots2, cents2, sizes2, qual2};
+  a.inner_coarse = inner_coarse;
+  a.scratch = scratch;
+  a.hc = hc;
+  a.wc = wc;
+  return launch(a, B, threads, scratch_per_frame, stream);
 }
 
 // Labels mode: coarse (B,hc,wc) 0/1 bytes -> labels1, labels2 (B,hc,wc)
 // int32 with sentinel hc*wc; labels2 is all sentinel unless `inner`.
-// Scratch as for a3_coarse_fit.  Returns cudaGetLastError().
-extern "C" int a3_coarse_labels(const uint8_t* coarse, int* labels1, int* labels2,
-                                int* scratch_i, uint8_t* scratch_u8, int B, int hc, int wc,
-                                int inner, int fill_rounds, int ccl_rounds, int bg_rounds,
-                                int inner_depths, int inner_flood_rounds, int inner_fill_rounds,
-                                int inner_ccl_rounds, cudaStream_t stream) {
-  Params pr = round_params(fill_rounds, ccl_rounds, bg_rounds, inner_depths,
-                           inner_flood_rounds, inner_fill_rounds, inner_ccl_rounds);
-  pr.k2 = inner ? 1 : 0;
-  const FitPtrs none = {};
-  return launch(coarse, none, none, nullptr, labels1, labels2, scratch_i, scratch_u8, B, hc, wc,
-                pr, stream);
+// threads and scratch as for a3_coarse_fit (with a3_coarse_layout's kr 0).
+// Returns cudaGetLastError().
+extern "C" int a3_coarse_labels(const uint8_t* coarse, int* labels1, int* labels2, int* scratch,
+                                int B, int hc, int wc, int inner, int fill_rounds, int ccl_rounds,
+                                int bg_rounds, int inner_depths, int inner_flood_rounds,
+                                int inner_fill_rounds, int inner_ccl_rounds, int threads,
+                                long long scratch_per_frame, cudaStream_t stream) {
+  Args a = {};
+  a.pr = round_params(fill_rounds, ccl_rounds, bg_rounds, inner_depths, inner_flood_rounds,
+                      inner_fill_rounds, inner_ccl_rounds);
+  a.pr.k2 = inner ? 1 : 0;
+  a.coarse = coarse;
+  a.labels1 = labels1;
+  a.labels2 = labels2;
+  a.scratch = scratch;
+  a.hc = hc;
+  a.wc = wc;
+  return launch(a, B, threads, scratch_per_frame, stream);
 }

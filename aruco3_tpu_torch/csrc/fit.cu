@@ -11,14 +11,21 @@
 // Their specification is segment.fit_quads (and merge_fits' exact-twin
 // rule for the skip); the shared pieces are in fit_common.cuh.
 //
-// What bounds them on an H100: latency, not bytes.  A 108x192 int32 plane
-// is 83 KB and stays in L2; the work is chains of block- or warp-wide
-// reductions over it (five passes per lane, each ending in a reduction).
-// Design: kernels 5 and 7 run one block of 1024 threads per frame (the
-// rank pool is a block-wide scan; kernel 7 then gives each lane to one
-// warp, as kernel 2's tail does).  Kernel 6 runs one block of 256 threads
-// per (lane, frame), so K = 160 lanes of a frame spread over the SMs;
-// blocks of unused lanes write zeros and stop.
+// What bounds them on an H100: latency, not bytes (an int32 108x192 plane
+// is 83 KB).  Kernel 7 is fit_common.cuh's fit_plane twice in one block
+// per frame, each plane first staged into shared memory as uint16_t (16
+// bytes a thread) beside its member lists and the fit scratch (grids below
+// 65,536 cells where they fit; else all three stay in device memory, the
+// scratch a frame's share of the wrapper's buffer: fused_layout).  The
+// wrapper takes threads per block from the batch and that shared memory
+// (ops.fit.threads_per_block): a batch of up to 132 frames gets 1,024
+// threads a frame, a larger one smaller blocks, several resident per SM.
+// Kernel 5 is fit_plane's rank pool alone (its admission words in shared
+// memory where they fit, else in device scratch).  Kernel 6 runs one block
+// of 256 threads per (lane, frame), so K = 160 lanes of a frame spread
+// over the SMs; blocks of unused lanes write zeros and stop.
+
+#include <type_traits>
 
 #include "fit_common.cuh"
 
@@ -31,15 +38,25 @@ constexpr int RANK_THREADS = 1024;
 constexpr int LANE_THREADS = 256;
 constexpr int LANE_WARPS = LANE_THREADS / 32;
 
+// Kernel 5's rank_pool_ints of row counts and admission bits: in shared
+// memory when they fit, else a frame's device scratch.
+a3fit::Layout rank_layout(int hc, int wc) {
+  const long long ints = a3fit::rank_pool_ints(hc, wc);
+  if (ints * 4 <= a3fit::SMEM_MAX) return {true, ints * 4, 0};
+  return {false, 0, ints};
+}
+
+// scratch: nullptr when the admission words are in shared memory.
 __global__ void __launch_bounds__(RANK_THREADS)
 rank_roots_kernel(const int* __restrict__ labels, int* roots_r, int* sizes_r, int* n_roots,
                   int* scratch, int hc, int wc, int kr, int min_px) {
-  __shared__ int chunk[RANK_THREADS];
-  __shared__ int n_sh;
+  extern __shared__ int dyn_rank[];
   const int b = blockIdx.x;
   const size_t P = static_cast<size_t>(hc) * wc;
-  const int n = a3fit::rank_pool(labels + b * P, hc, wc, kr, min_px, scratch + b * P, chunk,
-                                 &n_sh, roots_r + static_cast<size_t>(b) * kr,
+  int* row_off = scratch ? scratch + static_cast<size_t>(b) * a3fit::rank_pool_ints(hc, wc)
+                         : dyn_rank;
+  const a3fit::Labels<int> lab = {labels + b * P, hc, wc, wc};
+  const int n = a3fit::rank_pool(lab, kr, min_px, row_off, roots_r + static_cast<size_t>(b) * kr,
                                  sizes_r + static_cast<size_t>(b) * kr);
   if (threadIdx.x == 0) n_roots[b] = n;
 }
@@ -61,8 +78,8 @@ fit_lanes_kernel(const int* __restrict__ labels, const int* __restrict__ roots,
     return;
   }
   const a3fit::BlockRed<LANE_WARPS> red = {sd, sf, si};
-  const a3fit::LaneFit f = a3fit::lane_chain(red, labels + static_cast<size_t>(blockIdx.y) * P, P,
-                                             wc, roots[lane], sizes[lane], ds, slack);
+  const a3fit::PlaneMembers mem = {labels + static_cast<size_t>(blockIdx.y) * P, P, roots[lane]};
+  const a3fit::LaneFit f = a3fit::lane_chain(red, mem, wc, sizes[lane], ds, slack);
   if (threadIdx.x == 0) {
     for (int c = 0; c < 4; ++c) {
       q[c * 2] = f.qx[c];
@@ -74,34 +91,104 @@ fit_lanes_kernel(const int* __restrict__ labels, const int* __restrict__ roots,
   }
 }
 
-__global__ void __launch_bounds__(RANK_THREADS)
+// Stage a frame's int32 label plane into shared memory as uint16_t.
+__device__ void stage(const int* __restrict__ src, uint16_t* dst, int P) {
+  if ((P & 3) == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    for (int i = threadIdx.x; i < P / 4; i += blockDim.x) {
+      const int4 v = s4[i];
+      dst[4 * i] = static_cast<uint16_t>(v.x);
+      dst[4 * i + 1] = static_cast<uint16_t>(v.y);
+      dst[4 * i + 2] = static_cast<uint16_t>(v.z);
+      dst[4 * i + 3] = static_cast<uint16_t>(v.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < P; i += blockDim.x) dst[i] = static_cast<uint16_t>(src[i]);
+  }
+  __syncthreads();
+}
+
+// Kernel 7 on chip: the fit scratch, the staged uint16_t plane and the
+// member list in shared memory (grids below 65,536 cells where they fit);
+// else all three in device memory: the planes read where they lie, a
+// frame's scratch the member list (hc * wc ints) and then the fit scratch.
+a3fit::Layout fused_layout(int hc, int wc, int kr) {
+  const long long P = static_cast<long long>(hc) * wc;
+  const long long ints = a3fit::scratch_ints(kr, hc, wc);
+  const long long smem = ints * 4 + 2 * ((P + 7) / 8 * 16);
+  if (P < 65536 && smem <= a3fit::SMEM_MAX) return {true, smem, 0};
+  return {false, 0, P + ints};
+}
+
+// SMEM: fused_layout's on-chip layout in dyn; else its device scratch.
+template <bool SMEM>
+__global__ void __launch_bounds__(1024)
 fused_fit_kernel(const int* __restrict__ labels1, const int* __restrict__ labels2,
                  FitPtrs fit1, FitPtrs fit2, int* scratch, int hc, int wc, int k1, int k2,
                  int kr1, int kr2, FitParams pr, int dup_skip) {
-  __shared__ a3fit::FitSmem<RANK_THREADS> fs;
+  using Idx = typename std::conditional<SMEM, uint16_t, int>::type;
+  extern __shared__ __align__(16) int dyn[];
   const int b = blockIdx.x;
-  const size_t P = static_cast<size_t>(hc) * wc;
-  int* cnt = scratch + b * P;
+  const int P = hc * wc;
+  const int kr = max(kr1, kr2);
+  const int ints = a3fit::scratch_ints(kr, hc, wc);
+  int* frame = SMEM ? nullptr : scratch + static_cast<size_t>(b) * (static_cast<size_t>(P) + ints);
+  const a3fit::FitScratch s = a3fit::FitScratch::carve(SMEM ? dyn : frame + P, kr, hc, wc);
+  uint16_t* staged = reinterpret_cast<uint16_t*>(dyn + ints);
+  uint16_t* members16 = staged + (P + 7) / 8 * 8;
+  Idx* members = SMEM ? reinterpret_cast<Idx*>(members16) : reinterpret_cast<Idx*>(frame);
+  const int* lab1 = labels1 + static_cast<size_t>(b) * P;
+  const int* lab2 = labels2 + static_cast<size_t>(b) * P;
   const a3fit::FitOut o1 = fit1.frame(b, k1);
   const a3fit::Twins none = {nullptr, nullptr, nullptr, 0};
-  a3fit::fit_plane(labels1 + b * P, hc, wc, k1, kr1, o1, cnt, fs, pr, none);
-  if (k2 <= 0) return;
-  // The outer lanes are this block's own writes, visible after the
-  // barrier that ends fit_plane.
   const a3fit::Twins twins = {o1.roots, o1.sizes, o1.valid, k1};
-  a3fit::fit_plane(labels2 + b * P, hc, wc, k2, kr2, fit2.frame(b, k2), cnt, fs, pr,
-                   dup_skip ? twins : none);
+  for (int plane = 0; plane < (k2 > 0 ? 2 : 1); ++plane) {
+    const int* lab = plane ? lab2 : lab1;
+    const int k = plane ? k2 : k1;
+    const int kp = plane ? kr2 : kr1;
+    const a3fit::FitOut o = plane ? fit2.frame(b, k2) : o1;
+    // The outer lanes are this block's own writes, visible after the
+    // barrier that ends the first fit_plane.
+    const a3fit::Twins& tw = plane && dup_skip ? twins : none;
+    if (SMEM) {
+      stage(lab, staged, P);
+      a3fit::fit_plane(a3fit::Labels<uint16_t>{staged, hc, wc, wc}, k, kp, o, s, members, pr, tw);
+    } else {
+      a3fit::fit_plane(a3fit::Labels<int>{lab, hc, wc, wc}, k, kp, o, s, members, pr, tw);
+    }
+  }
+}
+
+template <class K>
+int launch_smem(K kernel, int smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
 
+// out[0], out[1]: bytes of shared memory a block and ints of device
+// scratch a frame that a3_rank_roots (kernel 5) and a3_fused_fit (kernel 7)
+// take for an hc x wc grid (kr: the larger rank pool).
+extern "C" int a3_rank_layout(int hc, int wc, long long* out) {
+  return a3fit::put_layout(rank_layout(hc, wc), out);
+}
+
+extern "C" int a3_fused_layout(int hc, int wc, int kr, long long* out) {
+  return a3fit::put_layout(fused_layout(hc, wc, kr), out);
+}
+
 // labels (B,hc,wc) int32 -> roots_r, sizes_r (B,kr) int32 (fill 0 / -1)
-// and n_roots (B,).  Scratch: B*hc*wc ints.  Returns cudaGetLastError().
+// and n_roots (B,).  scratch: scratch_ints a frame, at least
+// a3_rank_layout's.  Returns cudaGetLastError().
 extern "C" int a3_rank_roots(const int* labels, int* roots_r, int* sizes_r, int* n_roots,
-                             int* scratch, int B, int hc, int wc, int kr, int min_px,
-                             cudaStream_t stream) {
-  rank_roots_kernel<<<B, RANK_THREADS, 0, stream>>>(labels, roots_r, sizes_r, n_roots, scratch,
-                                                    hc, wc, kr, min_px);
+                             int* scratch, long long scratch_ints, int B, int hc, int wc, int kr,
+                             int min_px, cudaStream_t stream) {
+  const a3fit::Layout l = rank_layout(hc, wc);
+  if (scratch_ints < l.scratch) return cudaErrorInvalidValue;
+  cudaError_t e = static_cast<cudaError_t>(launch_smem(rank_roots_kernel, static_cast<int>(l.smem)));
+  if (e != cudaSuccess) return e;
+  rank_roots_kernel<<<B, RANK_THREADS, l.smem, stream>>>(
+      labels, roots_r, sizes_r, n_roots, l.in_smem ? nullptr : scratch, hc, wc, kr, min_px);
   return cudaGetLastError();
 }
 
@@ -119,17 +206,20 @@ extern "C" int a3_fit_lanes(const int* labels, const int* roots, const int* size
 }
 
 // labels1, labels2 (B,hc,wc) int32 -> the fits of both planes (k2 = 0:
-// the outer plane only).  Scratch: B*hc*wc ints.  Returns
+// the outer plane only).  threads: a multiple of 32 in [64, 1024];
+// scratch: scratch_ints a frame, at least a3_fused_layout's.  Returns
 // cudaGetLastError().
 extern "C" int a3_fused_fit(const int* labels1, const int* labels2, float* quads1,
                             uint8_t* valid1, int* roots1, float* cents1, int* sizes1, int* qual1,
                             float* quads2, uint8_t* valid2, int* roots2, float* cents2,
                             int* sizes2, int* qual2, int* scratch, int B, int hc, int wc, int ds,
                             int k1, int k2, int kr1, int kr2, float slack,
-                            float min_containment, int min_px, int dup_skip,
-                            cudaStream_t stream) {
+                            float min_containment, int min_px, int dup_skip, int threads,
+                            long long scratch_ints, cudaStream_t stream) {
+  const a3fit::Layout l = fused_layout(hc, wc, max(kr1, kr2));
   if (k1 <= 0 || k1 > a3fit::K_MAX || k2 > a3fit::K_MAX || kr1 > a3fit::KR_MAX ||
-      kr2 > a3fit::KR_MAX)
+      kr2 > a3fit::KR_MAX || k1 > kr1 || (k2 > 0 && k2 > kr2) || threads % 32 != 0 ||
+      threads < 64 || threads > 1024 || scratch_ints < l.scratch)
     return cudaErrorInvalidValue;
   const FitPtrs fit1 = {quads1, valid1, roots1, cents1, sizes1, qual1};
   const FitPtrs fit2 = {quads2, valid2, roots2, cents2, sizes2, qual2};
@@ -138,7 +228,14 @@ extern "C" int a3_fused_fit(const int* labels1, const int* labels2, float* quads
   pr.min_px = min_px;
   pr.slack = slack;
   pr.min_containment = min_containment;
-  fused_fit_kernel<<<B, RANK_THREADS, 0, stream>>>(labels1, labels2, fit1, fit2, scratch, hc, wc,
-                                                   k1, k2, kr1, kr2, pr, dup_skip);
+  if (l.in_smem) {
+    cudaError_t e = static_cast<cudaError_t>(launch_smem(fused_fit_kernel<true>, l.smem));
+    if (e != cudaSuccess) return e;
+    fused_fit_kernel<true><<<B, threads, l.smem, stream>>>(
+        labels1, labels2, fit1, fit2, scratch, hc, wc, k1, k2, kr1, kr2, pr, dup_skip);
+  } else {
+    fused_fit_kernel<false><<<B, threads, 0, stream>>>(
+        labels1, labels2, fit1, fit2, scratch, hc, wc, k1, k2, kr1, kr2, pr, dup_skip);
+  }
   return cudaGetLastError();
 }

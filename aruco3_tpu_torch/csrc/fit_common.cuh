@@ -5,16 +5,30 @@
 //   * rank_pool: the admission pre-filter (_rank_prep, wrap-around offsets
 //     of segment.ADMIT_OFFSETS), the raster rank of admitted roots and the
 //     (root, size) pair of each rank below min(n_roots, kr) (_rank_pool);
-//   * topk_pick: top-k of the pool by (size descending, root ascending),
-//     the order of lax.top_k on the raster-ordered pool;
+//   * topk_select: top-k of the pool by (size descending, pool position
+//     ascending), the order of lax.top_k on the raster-ordered pool;
 //   * lane_chain: the per-lane centroid, extreme-point quad and
 //     containment fraction (_lane_chain);
-//   * fit_plane: the three in a row for one label plane, one warp per
-//     lane (kernel 2's tail and kernel 7).
+//   * fit_plane: the three in a row for one label plane (kernel 2's tail
+//     and kernel 7).
 // The build has no -rdc, so shared device code lives here, in a header.
-// Every reduction is exact in any order: counts are integers, centroid
-// sums are summed in double, and every arg-max takes the first linear
-// index among equal scores.
+//
+// What bounds the fit on an H100: latency, not bytes.  A frame's label
+// plane (in shared memory as uint16_t where the grid has fewer than 65,536
+// cells and it fits; else in device memory, with the scratch below) is
+// read three times by one block: the admission pass (a warp per
+// row, one ballot per 32 cells; the bits are kept, so each root's raster
+// rank follows from one scan of the row counts), the count pass (each
+// member cell finds its root's pool slot by binary search in the
+// ascending pool; warp-aggregated atomics) and the scatter pass (the
+// members of each selected lane to a compact list).  The top-k is a
+// binary search for the k-th size (one barrier a step) plus a rank among
+// the fewer than k larger entries, not a comparison of all kr^2 pairs.
+// Each lane's chain (one warp per lane, five passes) then walks only its
+// own members.  Every reduction is exact in any order: counts are
+// integers, centroid sums are summed in double over half-integer cell
+// centres, and every arg-max takes the first linear index among equal
+// scores.
 
 #pragma once
 
@@ -24,8 +38,24 @@
 
 namespace a3fit {
 
-constexpr int KR_MAX = 1024;  // rank pool a fit_plane call holds in shared memory
+constexpr int KR_MAX = 1024;  // rank pool of a fit_plane call (kernels 2 and 7)
 constexpr int K_MAX = 128;    // lanes a fit_plane call selects
+constexpr long long SMEM_MAX = 232448;  // dynamic shared memory a block may take
+
+// Where a kernel keeps a frame's working state, as its launcher decides
+// from the grid: dynamic shared memory of `smem` bytes a block (0: none)
+// and device scratch of `scratch` ints a frame.  The a3_*_layout exports
+// hand it to the wrappers, which size the scratch and the block from it.
+struct Layout {
+  bool in_smem;
+  long long smem, scratch;
+};
+
+inline int put_layout(const Layout& l, long long* out) {
+  out[0] = l.smem;
+  out[1] = l.scratch;
+  return 0;
+}
 
 struct FitOut {
   float* quads;    // (k, 4, 2)
@@ -63,14 +93,44 @@ struct FitParams {
   float min_containment;
 };
 
-// Shared memory of one fit_plane call (THREADS threads).
-template <int THREADS>
-struct FitSmem {
-  int chunk[THREADS];
-  int roots_r[KR_MAX];
-  int sizes_r[KR_MAX];
-  int sel[K_MAX];
-  int n_roots;
+// A label plane: cell p = y * wc + x lives at ptr[y * pitch + x]; T is
+// int (device memory) or uint16_t (shared memory, when hc * wc < 65536).
+template <class T>
+struct Labels {
+  const T* ptr;
+  int hc, wc, pitch;
+  __device__ __forceinline__ int at(int y, int x) const {
+    return static_cast<int>(ptr[y * pitch + x]);
+  }
+};
+
+// The ints of one fit_plane call's scratch (shared or device memory):
+// roots_r, sizes_r and lane_of (kr each), the row counts (hc + 1), the
+// admission bits (rank_pool_ints), the selection (K_MAX), lane offsets
+// (K_MAX + 1), lane fills (K_MAX) and the top-k's counters (TOPK_INTS).
+constexpr int TOPK_INTS = 64 + 2 * K_MAX + 32;
+__host__ __device__ constexpr int rank_pool_ints(int hc, int wc) {
+  return hc + 1 + hc * ((wc + 31) / 32);
+}
+__host__ __device__ constexpr int scratch_ints(int kr, int hc, int wc) {
+  return 3 * kr + rank_pool_ints(hc, wc) + K_MAX + (K_MAX + 1) + K_MAX + TOPK_INTS;
+}
+
+struct FitScratch {
+  int *roots_r, *sizes_r, *lane_of, *row_off, *sel, *lane_off, *fill, *topk;
+
+  __device__ static FitScratch carve(int* base, int kr, int hc, int wc) {
+    FitScratch s;
+    s.roots_r = base;
+    s.sizes_r = s.roots_r + kr;
+    s.lane_of = s.sizes_r + kr;
+    s.row_off = s.lane_of + kr;
+    s.sel = s.row_off + rank_pool_ints(hc, wc);
+    s.lane_off = s.sel + K_MAX;
+    s.fill = s.lane_off + K_MAX + 1;
+    s.topk = s.fill + K_MAX;
+    return s;
+  }
 };
 
 static __device__ __forceinline__ float cell_x(int p, int wc, int ds) {
@@ -83,15 +143,19 @@ static __device__ __forceinline__ float cell_y(int p, int wc, int ds) {
          static_cast<float>(ds - 1) * 0.5f;
 }
 
+static __device__ __forceinline__ unsigned lanes_below() {
+  return (1u << (threadIdx.x & 31)) - 1u;
+}
+
 // A root whose same-label count at ADMIT_OFFSETS (wrapping around the
 // grid, as jnp.roll does) reaches t - 1, t = min(min_px, 3).
-static __device__ __forceinline__ bool is_admitted_root(const int* lab, int p, int t, int hc,
-                                                        int wc) {
-  const int l = lab[p];
-  if (l != p) return false;
+template <class T>
+static __device__ __forceinline__ bool is_admitted_root(const Labels<T>& lab, int y, int x,
+                                                        int t) {
+  const int l = lab.at(y, x);
+  if (l != y * lab.wc + x) return false;
   if (t <= 1) return true;
-  const int y = p / wc;
-  const int x = p - y * wc;
+  const int hc = lab.hc, wc = lab.wc;
   const int off2[2][2] = {{0, 1}, {1, 0}};
   const int off3[6][2] = {{0, 1}, {0, 2}, {1, -1}, {1, 0}, {1, 1}, {2, 0}};
   const int n = t == 2 ? 2 : 6;
@@ -101,78 +165,189 @@ static __device__ __forceinline__ bool is_admitted_root(const int* lab, int p, i
     const int dx = t == 2 ? off2[i][1] : off3[i][1];
     const int yy = ((y + dy) % hc + hc) % hc;
     const int xx = ((x + dx) % wc + wc) % wc;
-    cnt += lab[yy * wc + xx] == l;
+    cnt += lab.at(yy, xx) == l;
   }
   return cnt >= t - 1;
 }
 
-// Block-wide rank pool of one label plane.  roots_r / sizes_r (kr each,
-// shared or global memory) get the root and member count of raster rank j
-// for j < min(n_roots, kr), and (0, -1) after; returns n_roots.  cnt is a
-// P-int scratch plane, chunk blockDim.x ints and n_sh one int of shared
-// memory.  Ends with a barrier.
-static __device__ int rank_pool(const int* lab, int hc, int wc, int kr, int min_px, int* cnt,
-                                int* chunk, int* n_sh, int* roots_r, int* sizes_r) {
-  const int P = hc * wc;
-  const int t = min(min_px, 3);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) cnt[p] = 0;
-  __syncthreads();
-  // Each thread ranks a contiguous chunk of cells, so the ranks of its
-  // roots follow from one exclusive scan of the per-chunk counts.
-  const int cs = (P + blockDim.x - 1) / blockDim.x;
-  const int c0 = threadIdx.x * cs;
-  const int c1 = min(P, c0 + cs);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int l = lab[p];
-    if (l < P) atomicAdd(&cnt[l], 1);
-  }
+// Exclusive scan of a[0..n) in place by one whole warp; *total gets the sum.
+static __device__ void warp_scan_inplace(int* a, int n, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int c = (n + 31) / 32;
+  const int i0 = min(n, lane * c), i1 = min(n, i0 + c);
   int mine = 0;
-  for (int p = c0; p < c1; ++p) mine += is_admitted_root(lab, p, t, hc, wc);
-  chunk[threadIdx.x] = mine;
+  for (int i = i0; i < i1; ++i) mine += a[i];
+  int incl = mine;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += o;
+  }
+  int run = incl - mine;
+  for (int i = i0; i < i1; ++i) {
+    const int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  if (lane == 31) *total = incl;
+  __syncwarp();
+}
+
+// Exclusive block-wide scan of one int a thread; wt is 32 ints of scratch.
+// Every thread gets its prefix; *total the sum.  Contains barriers.
+static __device__ int block_scan(int v, int* wt, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int incl = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += o;
+  }
+  if (lane == 31) wt[warp] = incl;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0;
-    for (int i = 0; i < static_cast<int>(blockDim.x); ++i) {
-      const int c = chunk[i];
-      chunk[i] = run;
-      run += c;
+  if (warp == 0) {
+    int t = lane < nw ? wt[lane] : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, t, d);
+      if (lane >= d) t += o;
     }
-    *n_sh = run;
+    wt[lane] = t;
+    if (lane == nw - 1) *total = t;
   }
   __syncthreads();
-  const int n_roots = *n_sh;
-  int rank = chunk[threadIdx.x];
-  for (int p = c0; p < c1 && rank < kr; ++p) {
-    if (is_admitted_root(lab, p, t, hc, wc)) roots_r[rank++] = p;
-  }
-  for (int j = min(n_roots, kr) + threadIdx.x; j < kr; j += blockDim.x) roots_r[j] = 0;
+  const int out = (warp > 0 ? wt[warp - 1] : 0) + incl - v;
   __syncthreads();
-  for (int j = threadIdx.x; j < kr; j += blockDim.x)
-    sizes_r[j] = j < n_roots ? cnt[roots_r[j]] : -1;
+  return out;
+}
+
+// Slot of root l in the ascending pool roots[0..n), or -1.
+static __device__ __forceinline__ int pool_slot(const int* roots, int n, int l) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (roots[mid] < l) lo = mid + 1; else hi = mid;
+  }
+  return lo < n && roots[lo] == l ? lo : -1;
+}
+
+// Warp-aggregated atomicAdd(&ctr[s], 1) for the lanes whose s >= 0 (all
+// 32 lanes call); each such lane gets its old value (distinct per lane).
+static __device__ __forceinline__ int claim(int* ctr, int s) {
+  const unsigned peers = __match_any_sync(0xffffffffu, s);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (s >= 0 && static_cast<int>(threadIdx.x & 31) == leader) base = atomicAdd(&ctr[s], __popc(peers));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  return base + __popc(peers & lanes_below());
+}
+
+// Block-wide rank pool of one label plane.  roots_r / sizes_r (kr each,
+// shared or device memory) get the root and member count of raster rank j
+// for j < min(n_roots, kr), and (0, -1) after; row_off is rank_pool_ints
+// of scratch (row counts, then each row's admission bits, 32 cells a
+// word).  Returns n_roots; ends with a barrier.
+template <class T>
+static __device__ int rank_pool(const Labels<T>& lab, int kr, int min_px, int* row_off,
+                                int* roots_r, int* sizes_r) {
+  const int hc = lab.hc, wc = lab.wc, P = hc * wc, nw = (wc + 31) / 32;
+  const int t = min(min_px, 3);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  unsigned* adm = reinterpret_cast<unsigned*>(row_off + hc + 1);
+  for (int y = warp; y < hc; y += nwarps) {
+    int c = 0;
+    for (int j = 0; j < nw; ++j) {
+      const int x = 32 * j + lane;
+      const unsigned bits = __ballot_sync(0xffffffffu, x < wc && is_admitted_root(lab, y, x, t));
+      if (lane == 0) adm[y * nw + j] = bits;
+      c += __popc(bits);
+    }
+    if (lane == 0) row_off[y] = c;
+  }
+  for (int j = threadIdx.x; j < kr; j += blockDim.x) sizes_r[j] = 0;
+  __syncthreads();
+  if (warp == 0) warp_scan_inplace(row_off, hc, row_off + hc);
+  __syncthreads();
+  const int n_roots = row_off[hc];
+  const int n_pool = min(n_roots, kr);
+  // Raster ranks: a thread a word of admission bits.
+  for (int i = threadIdx.x; i < hc * nw; i += blockDim.x) {
+    const int y = i / nw;
+    const int j = i - y * nw;
+    unsigned bits = adm[i];
+    int rank = row_off[y];
+    for (int jj = 0; jj < j && rank < kr; ++jj) rank += __popc(adm[y * nw + jj]);
+    for (; bits && rank < kr; bits &= bits - 1, ++rank) roots_r[rank] = y * wc + 32 * j + __ffs(bits) - 1;
+  }
+  for (int j = n_pool + threadIdx.x; j < kr; j += blockDim.x) roots_r[j] = 0;
+  __syncthreads();
+  for (int y = warp; y < hc; y += nwarps) {
+    for (int x0 = 0; x0 < wc; x0 += 32) {
+      const int x = x0 + lane;
+      const int l = x < wc ? lab.at(y, x) : P;
+      claim(sizes_r, l < P ? pool_slot(roots_r, n_pool, l) : -1);
+    }
+  }
+  __syncthreads();
+  for (int j = n_pool + threadIdx.x; j < kr; j += blockDim.x) sizes_r[j] = -1;
   __syncthreads();
   return n_roots;
 }
 
-// The selection key: size in the high word, the root's complement in the
-// low word, so a larger key is a larger size, then a lower root.  Empty
-// pool entries (size -1, root 0) share one key; pool order breaks that tie.
-static __device__ __forceinline__ long long pick_key(int size, int root) {
-  return static_cast<long long>(
-      (static_cast<unsigned long long>(static_cast<long long>(size)) << 32) |
-      static_cast<unsigned>(0x7fffffff - root));
-}
-
-// sel[r] = pool index of the r-th pick, r < k: each entry counts the
-// entries ahead of it.  Block-wide; ends with a barrier.
-static __device__ void topk_pick(const int* roots_r, const int* sizes_r, int kr, int k, int* sel) {
-  for (int j = threadIdx.x; j < kr; j += blockDim.x) {
-    const long long kj = pick_key(sizes_r[j], roots_r[j]);
-    int r = 0;
-    for (int i = 0; i < kr; ++i) {
-      const long long ki = pick_key(sizes_r[i], roots_r[i]);
-      r += (ki > kj) || (ki == kj && i < j);
+// sel[r] = pool index of the r-th pick, r < k <= kr: by size descending,
+// then pool position ascending (the pool is in raster order, so this is
+// the root order of lax.top_k's ties).  The k-th size T comes from a
+// binary search on counts; the fewer than k entries above T are ranked
+// among themselves, the entries equal to T in pool order by a block scan.
+// tk is TOPK_INTS of scratch.  Block-wide; ends with a barrier.
+static __device__ void topk_select(const int* sizes_r, int kr, int k, int* sel, int* tk) {
+  int* cnt = tk;          // [0, 32): counts of the search steps; 32: max; 33: n above
+  int* gs = tk + 64;      // sizes of the entries above T
+  int* gj = gs + K_MAX;   // their pool positions
+  int* wt = gj + K_MAX;   // block_scan scratch
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 64) tk[threadIdx.x] = 0;
+  __syncthreads();
+  // Each thread owns a contiguous chunk of the pool (block_scan below
+  // needs pool order across threads).
+  const int ch = (kr + blockDim.x - 1) / blockDim.x;
+  const int j0 = min(kr, static_cast<int>(threadIdx.x) * ch), j1 = min(kr, j0 + ch);
+  int mx = -1;
+  for (int j = j0; j < j1; ++j) mx = max(mx, sizes_r[j]);
+  for (int d = 16; d > 0; d >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+  if (lane == 0) atomicMax(&cnt[32], mx);
+  __syncthreads();
+  int lo = -1, hi = cnt[32] + 1;  // count(size >= lo) >= k > count(size >= hi)
+  for (int it = 0; hi - lo > 1; ++it) {
+    const int mid = (lo + hi) >> 1;
+    int c = 0;
+    for (int j = j0; j < j1; ++j) c += sizes_r[j] >= mid;
+    for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(0xffffffffu, c, d);
+    if (lane == 0 && c) atomicAdd(&cnt[it], c);
+    __syncthreads();
+    if (cnt[it] >= k) lo = mid; else hi = mid;
+  }
+  const int T = lo;
+  int eq = 0;
+  for (int j = j0; j < j1; ++j) {
+    const int s = sizes_r[j];
+    eq += s == T;
+    if (s > T) {
+      const int g = atomicAdd(&cnt[33], 1);
+      gs[g] = s;
+      gj[g] = j;
     }
-    if (r < k) sel[r] = j;
+  }
+  int total;
+  int r = block_scan(eq, wt, &total);  // its barriers also publish gs, gj
+  const int n_above = cnt[33];
+  r += n_above;
+  for (int j = j0; j < j1 && r < k; ++j) {
+    if (sizes_r[j] != T) continue;
+    sel[r++] = j;
+  }
+  for (int g = threadIdx.x; g < n_above; g += blockDim.x) {
+    int rank = 0;
+    for (int h = 0; h < n_above; ++h)
+      rank += gs[h] > gs[g] || (gs[h] == gs[g] && gj[h] < gj[g]);
+    sel[rank] = gj[g];
   }
   __syncthreads();
 }
@@ -255,26 +430,49 @@ struct BlockRed {
   }
 };
 
+// The cells a lane chain walks: every cell of the plane whose label is
+// `root` (kernel 6), or a compact member list (kernels 2 and 7).
+struct PlaneMembers {
+  const int* lab;
+  int P, root;
+  __device__ int n() const { return P; }
+  __device__ bool get(int i, int& p) const {
+    p = i;
+    return lab[i] == root;
+  }
+};
+
+template <class Idx>
+struct ListMembers {
+  const Idx* m;
+  int count;
+  __device__ int n() const { return count; }
+  __device__ bool get(int i, int& p) const {
+    p = static_cast<int>(m[i]);
+    return true;
+  }
+};
+
 struct LaneFit {
   float qx[4], qy[4];  // corners A, B, C, D
   float cenx, ceny, frac;
 };
 
-// segment.fit_quads' chain for the lane of `root` with `size` members
-// (size >= 0): centroid, corner A farthest from it, corner C farthest from
-// A, B and D the extremes of the cross product against A->C, then the
-// fraction of members inside the quad expanded by slack * edge length.
-// Each arg-max takes the first cell among equal scores (cell 0 when the
-// lane has no member, as the plain version's masked argmax does).
-template <class Red>
-static __device__ __forceinline__ LaneFit lane_chain(const Red& red, const int* lab, int P,
-                                                     int wc, int root, int size, int ds,
-                                                     float slack) {
-  const int r0 = red.rank(), rs = red.size();
+// segment.fit_quads' chain for a lane with `size` members (size >= 0):
+// centroid, corner A farthest from it, corner C farthest from A, B and D
+// the extremes of the cross product against A->C, then the fraction of
+// members inside the quad expanded by slack * edge length.  Each arg-max
+// takes the first cell among equal scores (cell 0 when the lane has no
+// member, as the plain version's masked argmax does).
+template <class Red, class Mem>
+static __device__ __forceinline__ LaneFit lane_chain(const Red& red, const Mem& mem, int wc,
+                                                     int size, int ds, float slack) {
+  const int r0 = red.rank(), rs = red.size(), n = mem.n();
   const float szf = fmaxf(static_cast<float>(size), 1.0f);
   double sx = 0.0, sy = 0.0;
-  for (int p = r0; p < P; p += rs) {
-    if (lab[p] != root) continue;
+  for (int i = r0; i < n; i += rs) {
+    int p;
+    if (!mem.get(i, p)) continue;
     sx += static_cast<double>(cell_x(p, wc, ds));
     sy += static_cast<double>(cell_y(p, wc, ds));
   }
@@ -285,8 +483,9 @@ static __device__ __forceinline__ LaneFit lane_chain(const Red& red, const int* 
   auto first = [](int i) { return i == 0x7fffffff ? 0 : i; };
   float bs = -INFINITY;
   int bi = 0x7fffffff;
-  for (int p = r0; p < P; p += rs) {
-    if (lab[p] != root) continue;
+  for (int i = r0; i < n; i += rs) {
+    int p;
+    if (!mem.get(i, p)) continue;
     const float dxx = cell_x(p, wc, ds) - f.cenx;
     const float dyy = cell_y(p, wc, ds) - f.ceny;
     amax_update(dxx * dxx + dyy * dyy, p, bs, bi);
@@ -296,8 +495,9 @@ static __device__ __forceinline__ LaneFit lane_chain(const Red& red, const int* 
 
   bs = -INFINITY;
   bi = 0x7fffffff;
-  for (int p = r0; p < P; p += rs) {
-    if (lab[p] != root) continue;
+  for (int i = r0; i < n; i += rs) {
+    int p;
+    if (!mem.get(i, p)) continue;
     const float dxx = cell_x(p, wc, ds) - ax;
     const float dyy = cell_y(p, wc, ds) - ay;
     amax_update(dxx * dxx + dyy * dyy, p, bs, bi);
@@ -309,8 +509,9 @@ static __device__ __forceinline__ LaneFit lane_chain(const Red& red, const int* 
   const float dy = qcy - ay;
   float bsb = -INFINITY, bsd = -INFINITY;
   int bib = 0x7fffffff, bid = 0x7fffffff;
-  for (int p = r0; p < P; p += rs) {
-    if (lab[p] != root) continue;
+  for (int i = r0; i < n; i += rs) {
+    int p;
+    if (!mem.get(i, p)) continue;
     const float cross = (cell_x(p, wc, ds) - ax) * dy - (cell_y(p, wc, ds) - ay) * dx;
     amax_update(cross, p, bsb, bib);
     amax_update(-cross, p, bsd, bid);
@@ -328,10 +529,10 @@ static __device__ __forceinline__ LaneFit lane_chain(const Red& red, const int* 
   // Containment in the expanded per-edge form of segment.fit_quads.
   float ex[4], ey[4], term[4];
   for (int e = 0; e < 4; ++e) {
-    const int n = (e + 1) & 3;
-    ex[e] = qx[n] - qx[e];
-    ey[e] = qy[n] - qy[e];
-    term[e] = qx[e] * qy[n] - qx[n] * qy[e];
+    const int nx = (e + 1) & 3;
+    ex[e] = qx[nx] - qx[e];
+    ey[e] = qy[nx] - qy[e];
+    term[e] = qx[e] * qy[nx] - qx[nx] * qy[e];
   }
   const float area2 = ((term[0] + term[1]) + term[2]) + term[3];
   const float sgn = area2 >= 0.0f ? 1.0f : -1.0f;
@@ -344,8 +545,9 @@ static __device__ __forceinline__ LaneFit lane_chain(const Red& red, const int* 
     rhs[e] = -slack * elen - c0e;
   }
   int inside = 0;
-  for (int p = r0; p < P; p += rs) {
-    if (lab[p] != root) continue;
+  for (int i = r0; i < n; i += rs) {
+    int p;
+    if (!mem.get(i, p)) continue;
     const float px = cell_x(p, wc, ds), py = cell_y(p, wc, ds);
     bool in = true;
     for (int e = 0; e < 4; ++e) in = in && (py * av[e] - px * bv[e] >= rhs[e]);
@@ -388,21 +590,51 @@ struct Twins {
   }
 };
 
-// segment.fit_quads of one label plane: k lanes from a pool of kr roots,
-// one warp per lane.  Block-wide; ends with a barrier.
-template <int THREADS>
-static __device__ void fit_plane(const int* lab, int hc, int wc, int k, int kr, const FitOut o,
-                                 int* cnt, FitSmem<THREADS>& s, const FitParams& pr,
+// segment.fit_quads of one label plane: k <= K_MAX lanes from a pool of
+// kr <= KR_MAX roots.  members holds at least hc * wc cell indices (Idx
+// holds hc * wc).  Block-wide; ends with a barrier.
+template <class T, class Idx>
+static __device__ void fit_plane(const Labels<T>& lab, int k, int kr, const FitOut o,
+                                 const FitScratch& s, Idx* members, const FitParams& pr,
                                  const Twins& twins) {
-  const int P = hc * wc;
-  const int n_roots =
-      rank_pool(lab, hc, wc, kr, pr.min_px, cnt, s.chunk, &s.n_roots, s.roots_r, s.sizes_r);
-  topk_pick(s.roots_r, s.sizes_r, kr, k, s.sel);
+  const int hc = lab.hc, wc = lab.wc, P = hc * wc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int n_roots = rank_pool(lab, kr, pr.min_px, s.row_off, s.roots_r, s.sizes_r);
+  const int n_pool = min(n_roots, kr);
+  topk_select(s.sizes_r, kr, k, s.sel, s.topk);
   if (threadIdx.x == 0) *o.qual = n_roots;
 
+  // Fitted lanes: their pool slots map to the lane, and their members get
+  // consecutive ranges of the list.
+  for (int j = threadIdx.x; j < kr; j += blockDim.x) s.lane_of[j] = -1;
+  __syncthreads();
+  if (warp == 0) {
+    for (int l = lane; l < k; l += 32) {
+      const int j = s.sel[l];
+      const int sz = s.sizes_r[j];
+      const bool fitted = sz >= 0 && !twins.has(s.roots_r[j], max(sz, 0));
+      s.lane_off[l] = fitted ? sz : 0;
+      s.fill[l] = 0;
+      if (fitted) s.lane_of[j] = l;
+    }
+    __syncwarp();
+    warp_scan_inplace(s.lane_off, k, s.lane_off + k);
+  }
+  __syncthreads();
+  for (int y = warp; y < hc; y += nwarps) {
+    for (int x0 = 0; x0 < wc; x0 += 32) {
+      const int x = x0 + lane;
+      const int l = x < wc ? lab.at(y, x) : P;
+      const int slot = l < P ? pool_slot(s.roots_r, n_pool, l) : -1;
+      const int r = slot >= 0 ? s.lane_of[slot] : -1;
+      const int pos = claim(s.fill, r);
+      if (r >= 0) members[s.lane_off[r] + pos] = static_cast<Idx>(y * wc + x);
+    }
+  }
+  __syncthreads();
+
   const WarpRed red{};
-  const int lane = threadIdx.x & 31;
-  for (int l = threadIdx.x >> 5; l < k; l += THREADS / 32) {
+  for (int l = warp; l < k; l += nwarps) {
     const int j = s.sel[l];
     const int sz = s.sizes_r[j];
     const int root = s.roots_r[j];
@@ -411,7 +643,8 @@ static __device__ void fit_plane(const int* lab, int hc, int wc, int k, int kr, 
       if (lane == 0) write_lane(o, l, nullptr, root, size, sz >= 0, pr);
       continue;
     }
-    const LaneFit f = lane_chain(red, lab, P, wc, root, size, pr.ds, pr.slack);
+    const ListMembers<Idx> mem{members + s.lane_off[l], size};
+    const LaneFit f = lane_chain(red, mem, wc, size, pr.ds, pr.slack);
     if (lane == 0) write_lane(o, l, &f, root, size, true, pr);
   }
   __syncthreads();

@@ -16,6 +16,7 @@ contracted multiply-add rounds differently.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,15 +42,19 @@ NVCC_FLAGS = [
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLT = ctypes.c_float
+_LL = ctypes.c_longlong
 
 # C signatures: every pointer and the stream as c_void_p.
 SIGNATURES = {
     "a3_frontend": [_PTR] * 5 + [_INT] * 12 + [_PTR],
-    "a3_coarse_fit": [_PTR] * 16 + [_INT] * 15 + [_FLT, _FLT, _INT, _PTR],
-    "a3_coarse_labels": [_PTR] * 5 + [_INT] * 11 + [_PTR],
-    "a3_rank_roots": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+    "a3_coarse_layout": [_INT] * 3 + [_PTR],
+    "a3_coarse_fit": [_PTR] * 15 + [_INT] * 15 + [_FLT, _FLT] + [_INT] * 2 + [_LL, _PTR],
+    "a3_coarse_labels": [_PTR] * 4 + [_INT] * 12 + [_LL, _PTR],
+    "a3_rank_layout": [_INT] * 2 + [_PTR],
+    "a3_rank_roots": [_PTR] * 5 + [_LL] + [_INT] * 5 + [_PTR],
     "a3_fit_lanes": [_PTR] * 7 + [_INT] * 5 + [_FLT, _PTR],
-    "a3_fused_fit": [_PTR] * 15 + [_INT] * 8 + [_FLT, _FLT, _INT, _INT, _PTR],
+    "a3_fused_layout": [_INT] * 3 + [_PTR],
+    "a3_fused_fit": [_PTR] * 15 + [_INT] * 8 + [_FLT, _FLT] + [_INT] * 3 + [_LL, _PTR],
     "a3_refine": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     "a3_warp_decode": [_PTR] * 12 + [_INT] * 6 + [_PTR],
     "a3_warp_eval": [_PTR] * 4 + [_INT] * 3 + [_PTR],
@@ -138,6 +143,15 @@ def fn(name: str):
     return f
 
 
+def layout(name: str, *args: int) -> tuple[int, int]:
+    """(bytes of shared memory a block, ints of device scratch a frame)
+    that a kernel takes, from the library's ``a3_*_layout`` export
+    ``name``: the kernel's source decides where its state lives."""
+    out = (ctypes.c_longlong * 2)()
+    check(fn(name)(*args, out), name)
+    return int(out[0]), int(out[1])
+
+
 def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if err != 0:
@@ -155,6 +169,12 @@ def checked_ptr(t: torch.Tensor, dtype, shape=None, name="tensor"):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     return ctypes.c_void_p(t.data_ptr())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream() -> int:

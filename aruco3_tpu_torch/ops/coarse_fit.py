@@ -8,11 +8,13 @@ version on CPU tensors.  For (B, Hc, Wc) bool coarse masks:
   returns them (quads, valid, roots, centroids, sizes, qualifying, each
   with a leading batch axis), and the dilated footprint of the inner label
   plane, (B, Hc, Wc) bool.  ``fit2`` is None when ``max_inner_candidates``
-  is 0.  Its lanes and rank pool live in shared memory: at most 128 lanes
-  and a pool of 1024.
+  is 0.  It takes at most 128 lanes and a rank pool of 1024.
 * ``coarse_labels`` (labels mode; plain: ``labels_plain``, which is
   ``segment.label_planes``) returns ``(labels1, labels2)``, (B, Hc, Wc)
   int32 with sentinel Hc*Wc.
+
+The kernel's source decides where a frame's planes live
+(``a3_coarse_layout``); ``fit.threads_per_block`` sizes its blocks.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from .. import segment
 from . import Counter, _build
-from .fit import MAX_LANES, MAX_POOL, fit_buffers, fit_ptrs
+from .fit import MAX_LANES, MAX_POOL, fit_buffers, fit_ptrs, scratch, threads_per_block
 
 count = Counter()
 labels_count = Counter()
@@ -57,13 +59,11 @@ def quad_mismatches(got: dict, ref: dict) -> int:
     return int((differs & ((da - db).abs() >= 1e-2)).sum())
 
 
-def _scratch(b: int, hc: int, wc: int, dev):
-    """Four int32 planes and ten byte planes (rows padded to at most wc + 8
-    bytes; used only when they do not fit in shared memory) per frame."""
-    return (
-        torch.empty((b, 4 * hc * wc), dtype=torch.int32, device=dev),
-        torch.empty((b, 10 * hc * (wc + 8)), dtype=torch.uint8, device=dev),
-    )
+def _plan(b: int, hc: int, wc: int, kr: int, dev) -> tuple[int, int]:
+    """(threads, scratch ints a frame) of kernel 2 for b frames of an hc x
+    wc grid; kr: the larger rank pool in fit mode, 0 in labels mode."""
+    smem, per_frame = _build.layout("a3_coarse_layout", hc, wc, kr)
+    return threads_per_block(b, smem, _build.sm_count(dev.index)), per_frame
 
 
 def _rounds(params: segment.QuadParams):
@@ -100,19 +100,21 @@ def coarse_fit(coarse: torch.Tensor, params: segment.QuadParams, ds: int):
     fit1 = fit_buffers(b, k1, dev)
     fit2 = fit_buffers(b, k2, dev)
     inner = torch.empty((b, hc, wc), dtype=torch.bool, device=dev)
-    scratch_i, scratch_u8 = _scratch(b, hc, wc, dev)
+    threads, per_frame = _plan(b, hc, wc, max(kr1, kr2), dev)
+    work = scratch(b, per_frame, dev)
     err = _build.lib().a3_coarse_fit(
         c,
         *fit_ptrs(fit1),
         *fit_ptrs(fit2),
         inner.data_ptr(),
-        scratch_i.data_ptr(),
-        scratch_u8.data_ptr(),
+        work.data_ptr(),
         b, hc, wc, ds, k1, k2, kr1, kr2,
         *_rounds(params),
         float(np.float32(params.containment_slack * ds)),
         float(np.float32(params.min_containment)),
         params.min_component_px,
+        threads,
+        per_frame,
         _build.stream(),
     )
     _build.check(err, "a3_coarse_fit")
@@ -132,16 +134,18 @@ def coarse_labels(coarse: torch.Tensor, params: segment.QuadParams):
     dev = coarse.device
     labels1 = torch.empty((b, hc, wc), dtype=torch.int32, device=dev)
     labels2 = torch.empty((b, hc, wc), dtype=torch.int32, device=dev)
-    scratch_i, scratch_u8 = _scratch(b, hc, wc, dev)
+    threads, per_frame = _plan(b, hc, wc, 0, dev)
+    work = scratch(b, per_frame, dev)
     err = _build.lib().a3_coarse_labels(
         c,
         labels1.data_ptr(),
         labels2.data_ptr(),
-        scratch_i.data_ptr(),
-        scratch_u8.data_ptr(),
+        work.data_ptr(),
         b, hc, wc,
         int(params.max_inner_candidates > 0),
         *_rounds(params),
+        threads,
+        per_frame,
         _build.stream(),
     )
     _build.check(err, "a3_coarse_labels")

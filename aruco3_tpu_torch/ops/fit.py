@@ -13,6 +13,10 @@ on CPU tensors:
   count is above 128, ``fit_quads_batch`` on each plane: kernel 5, a
   stable top-k in torch, kernel 6.
 
+Each kernel's source decides where a frame's state lives (shared memory
+or device scratch, ``_build.layout``); ``threads_per_block`` sizes the
+blocks of kernels 2 and 7 from the batch and that shared memory.
+
 The fit dicts are those of ``segment.fit_quads``: quads (B, K, 4, 2),
 valid (B, K), roots (B, K), centroids (B, K, 2), sizes (B, K) and
 qualifying (B,).
@@ -30,9 +34,25 @@ rank_count = Counter()
 lanes_count = Counter()
 fused_count = Counter()
 
-# Lanes and rank pool that kernel 7 holds in shared memory.
+# Lanes and rank pool of kernel 7 (and of kernel 2's fit mode).
 MAX_LANES = 128
 MAX_POOL = 1024
+SMEM_SM = 233_472  # shared memory of an H100 SM; each resident block also takes 1 KB
+
+
+def threads_per_block(b: int, smem: int, sms: int) -> int:
+    """Threads of a one-frame block of kernel 2 or 7 that takes ``smem``
+    bytes of shared memory, for b frames on ``sms`` SMs: 1,024 when the
+    batch fills the SMs once; otherwise as many blocks an SM as the batch
+    needs (at most 4, and as many as shared memory holds), 1,024 threads an
+    SM between them."""
+    per_sm = max(1, min(-(-b // sms), SMEM_SM // (smem + 1024), 4))
+    return 1024 // per_sm // 32 * 32
+
+
+def scratch(b: int, ints: int, dev) -> torch.Tensor:
+    """Device scratch of ``ints`` a frame (one int when a kernel takes none)."""
+    return torch.empty((b, ints) if ints else (1,), dtype=torch.int32, device=dev)
 
 
 def fit_buffers(b: int, k: int, dev) -> dict:
@@ -77,10 +97,12 @@ def rank_roots(labels: torch.Tensor, kr: int, min_px: int):
     roots_r = torch.empty((b, kr), dtype=torch.int32, device=dev)
     sizes_r = torch.empty((b, kr), dtype=torch.int32, device=dev)
     n_roots = torch.empty((b,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((b, hc * wc), dtype=torch.int32, device=dev)
+    per_frame = _build.layout("a3_rank_layout", hc, wc)[1]
+    work = scratch(b, per_frame, dev)
     err = _build.lib().a3_rank_roots(
         lab, roots_r.data_ptr(), sizes_r.data_ptr(), n_roots.data_ptr(),
-        scratch.data_ptr(), b, hc, wc, kr, int(min_px), _build.stream(),
+        work.data_ptr(), per_frame,
+        b, hc, wc, kr, int(min_px), _build.stream(),
     )
     _build.check(err, "a3_rank_roots")
     rank_count.launches += 1
@@ -180,16 +202,19 @@ def fused_fit_batch(
     if max(kr1, kr2) > MAX_POOL:
         raise ValueError(f"rank pool {max(kr1, kr2)} exceeds {MAX_POOL}")
     dev = labels1.device
+    smem, per_frame = _build.layout("a3_fused_layout", hc, wc, max(kr1, kr2))
+    work = scratch(b, per_frame, dev)
     fit1 = fit_buffers(b, k1, dev)
     fit2 = fit_buffers(b, k2, dev)
-    scratch = torch.empty((b, p), dtype=torch.int32, device=dev)
     err = _build.lib().a3_fused_fit(
-        lab1, lab2, *fit_ptrs(fit1), *fit_ptrs(fit2), scratch.data_ptr(),
+        lab1, lab2, *fit_ptrs(fit1), *fit_ptrs(fit2), work.data_ptr(),
         b, hc, wc, ds, k1, k2, kr1, kr2,
         _slack(params.containment_slack, ds),
         float(np.float32(params.min_containment)),
         params.min_component_px,
         int(bool(dup_skip) and k2 > 0),
+        threads_per_block(b, smem, _build.sm_count(dev.index)),
+        per_frame,
         _build.stream(),
     )
     _build.check(err, "a3_fused_fit")

@@ -95,6 +95,12 @@ NOREF_TOL_PX = 12.0
 BATCHES = {"landscape": 128, "portrait": 128, "dense": 16, "noref": 128, "small": 512}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# The CUDA kernel each wrapper launches (its name in a profile).
+CUDA_NAMES = {"frontend": "frontend_kernel", "coarse_fit": "coarse_kernel",
+              "coarse_labels": "coarse_kernel", "fused_fit": "fused_fit_kernel",
+              "rank_roots": "rank_roots_kernel", "fit_lanes": "fit_lanes_kernel",
+              "refine": "refine_kernel", "warp_decode": "warp_decode_kernel",
+              "warp_eval": "warp_eval_kernel"}
 # name -> (CUDA source, TPU kernel it replaces, path whose shapes its row reports)
 KERNELS = {
     "frontend": ("aruco3_tpu_torch/csrc/frontend.cu",
@@ -146,25 +152,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, kernel: str | None = None) -> float:
     """Device milliseconds per call of ``fn`` (torch.profiler over ``reps``
-    calls after one warm-up): the kernels' time without the host's.  Raises
-    if three profiles record no device time."""
+    calls after one warm-up): the kernels' time without the host's.  The
+    profiler now and then drops events, so a profile counts only if it
+    holds at least ``reps`` events of the CUDA kernel named ``kernel``
+    (one launch a call), or any device time when ``kernel`` is None; raises
+    after five profiles that do not."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then records no device event
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         total = sum(e.self_device_time_total for e in dev)
-        if total > 0:
+        events = sum(e.count for e in dev if kernel is not None and kernel in e.key)
+        if total > 0 and (kernel is None or events >= reps):
             return total / 1e3 / reps
-    raise RuntimeError("torch.profiler recorded no device time in three tries")
+    raise RuntimeError(f"torch.profiler dropped device events of {kernel} in five tries")
 
 
 def mismatches(a, b) -> int:
@@ -591,7 +601,8 @@ def tail_timing(det, frames, card, small_args) -> None:
     for shape, (a_win, a_ux, a_uy) in (("batch", args["warp_eval"]), ("phase3", small_args)):
         a_grid = sample_grid(a_ux, a_uy)
         dev[f"{shape}_kernel_device_ms"] = round(
-            device_ms(lambda: warp_eval.warp_eval(a_win, a_ux, a_uy), reps=10), 4)
+            device_ms(lambda: warp_eval.warp_eval(a_win, a_ux, a_uy), reps=10,
+                      kernel="warp_eval_kernel"), 4)
         dev[f"{shape}_grid_sample_device_ms"] = round(
             device_ms(lambda: grid_sample_eval(a_win, a_grid), reps=10), 4)
     grey, level1, H, quads, valid = (tail[k] for k in ("grey", "level1", "H", "quads", "valid"))
@@ -656,7 +667,7 @@ def batch_kernel_timing(path, det, frames, card) -> dict:
     for name, a in args.items():
         kernel = table[name][0]
         got = kernel(*a)
-        ms = device_ms(lambda: kernel(*a), reps=5)
+        ms = device_ms(lambda: kernel(*a), reps=5, kernel=CUDA_NAMES[name])
         b_ms, b_by = bound(*work(name, a, got))
         log(f"timing {name} at batch", path=path, card=repr(card), batch=frames.shape[0],
             device_ms=round(ms, 4), bound_ms=round(b_ms, 5), bound_by=b_by,
@@ -687,28 +698,14 @@ def route_timing(det, frames, card) -> None:
         label_route_ms=round(route_ms, 4))
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this smoke run needs an NVIDIA card")
-    card = smi_line()
-    log("device", card=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
-        count=torch.cuda.device_count())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+def path_inputs():
+    """The five paths' inputs: ({path: (detector on the card, frames (n, H,
+    W) u8)}, {path: ground truth [(id, corners)]})."""
     from dataclasses import replace
 
     from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig, render
     from aruco3_tpu_torch.models import presets
-    from aruco3_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    _build.lib()
-    log("build", seconds=round(time.perf_counter() - t0, 3), library=_build.library_path().name)
-
-    # The five paths' detectors and frames.
     dictionary = ARDictionary.new_from_named_dict(DICT_NAME)
     det = Detector(DetectorConfig(), dictionary, device="cuda")
     h, w = LANDSCAPE_HW
@@ -724,7 +721,6 @@ def main() -> int:
     dh, dw = DENSE_HW
     boards = [grid_frame(dense_dict, dh, dw, 230, np.random.default_rng(s), 14, 9)
               for s in range(2)]
-    dense_truth = boards[0][1]
     det_noref = Detector(DetectorConfig(refine_corners=False), dictionary, device="cuda")
     small_dict = ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
     det_small = Detector(DetectorConfig(), small_dict, device="cuda")
@@ -740,6 +736,34 @@ def main() -> int:
         "noref": (det_noref, np.stack([scene] + extra)),
         "small": (det_small, smalls),
     }
+    truths = {"landscape": truth, "portrait": truth_p, "dense": boards[0][1], "noref": truth,
+              "small": [(5, SMALL_QUAD)]}
+    return paths, truths
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this smoke run needs an NVIDIA card")
+    card = smi_line()
+    log("device", card=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
+        count=torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from aruco3_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.lib()
+    log("build", seconds=round(time.perf_counter() - t0, 3), library=_build.library_path().name)
+
+    paths, truths = path_inputs()
+    det, det_dense, det_noref, det_small = (
+        paths[p][0] for p in ("landscape", "dense", "noref", "small"))
+    scene, portrait = paths["landscape"][1][0], paths["portrait"][1][0]
+    boards, smalls = paths["dense"][1], paths["small"][1]
+    h, w = LANDSCAPE_HW
     phase3 = {}
     args_of = {}
     for path, (d, frames) in paths.items():
@@ -751,35 +775,35 @@ def main() -> int:
     launches_of = {}
     t16 = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(scene, (16, h, w)))).cuda()
     out, tr, launches_of["landscape"] = drive("landscape", det, t16, set(args_of["landscape"]))
-    worst = check_markers(out, tr, truth)
+    worst = check_markers(out, tr, truths["landscape"])
     log("path landscape", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
         worst_corner_err_px=round(worst, 3))
     p16 = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(portrait, (16, w, h)))).cuda()
     out, tr, launches_of["portrait"] = drive("portrait", det, p16, set(args_of["portrait"]))
-    worst_p = check_markers(out, tr, truth_p)
+    worst_p = check_markers(out, tr, truths["portrait"])
     log("path portrait", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
         worst_corner_err_px=round(worst_p, 3))
     del p16
     out, tr, launches_of["noref"] = drive("noref", det_noref, t16, set(args_of["noref"]))
-    worst_n = check_markers(out, tr, truth, tol=NOREF_TOL_PX)
+    worst_n = check_markers(out, tr, truths["noref"], tol=NOREF_TOL_PX)
     cand_eq, cpu_s = equal_to_cpu("noref", out, det_noref, scene)
     log("path noref", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
         worst_corner_err_px=round(worst_n, 3), cpu_reference_s=round(cpu_s, 3),
         candidates_equal_cpu=cand_eq)
     del t16
-    d4 = torch.from_numpy(np.stack([b[0] for b in boards] * 2)).cuda()
+    d4 = torch.from_numpy(np.concatenate([boards] * 2)).cuda()
     out, tr, launches_of["dense"] = drive("dense", det_dense, d4, set(args_of["dense"]))
-    cand_eq, cpu_s = equal_to_cpu("dense", out, det_dense, boards[0][0])
+    cand_eq, cpu_s = equal_to_cpu("dense", out, det_dense, boards[0])
     found = {int(i) for i, v in zip(out["marker_id"][0].tolist(), out["marker_valid"][0].tolist())
-             if v} & {mid for mid, _ in dense_truth}
-    log("path dense", frames=4, tags_found=len(found), tags_on_board=len(dense_truth),
+             if v} & {mid for mid, _ in truths["dense"]}
+    log("path dense", frames=4, tags_found=len(found), tags_on_board=len(truths["dense"]),
         markers_frame0=int(out["marker_valid"][0].sum()), cpu_reference_s=round(cpu_s, 3),
         candidates_equal_cpu=cand_eq)
     require(bool(torch.isfinite(tr[0][out["marker_valid"][0]]).all()), "dense: non-finite pose")
     del d4
     s16 = torch.from_numpy(np.concatenate([smalls] * 4)).cuda()
     out, tr, launches_of["small"] = drive("small", det_small, s16, set(args_of["small"]))
-    worst_s = check_markers(out, tr, [(5, SMALL_QUAD)])
+    worst_s = check_markers(out, tr, truths["small"])
     cand_eq, cpu_s = equal_to_cpu("small", out, det_small, smalls[0])
     log("path small", frames=16, markers_per_frame=int(out["marker_valid"][0].sum()),
         worst_corner_err_px=round(worst_s, 3), cpu_reference_s=round(cpu_s, 3),
@@ -810,7 +834,7 @@ def main() -> int:
         kernel, plain = table[name]
         a = args_of[path][name]
         k_ms = cuda_ms(lambda: kernel(*a), reps=10)
-        dev_ms = device_ms(lambda: kernel(*a), reps=10)
+        dev_ms = device_ms(lambda: kernel(*a), reps=10, kernel=CUDA_NAMES[name])
         p_ms = cuda_ms(lambda: plain(*a), reps=2)
         err, bytes_, ops = phase3[path][name]
         b_ms, b_by = bound(bytes_, ops)

@@ -14,13 +14,14 @@ import pytest
 import torch
 
 from aruco3_tpu_torch import Detector, DetectorConfig, dictionaries, frontend, rectify, segment
+from aruco3_tpu_torch.ops import _build
 from aruco3_tpu_torch.ops import coarse_fit as k2
 from aruco3_tpu_torch.ops import fit as kfit
 from aruco3_tpu_torch.ops import frontend as k1
 from aruco3_tpu_torch.ops import refine as k3
 from aruco3_tpu_torch.ops import warp_decode as k4
 from aruco3_tpu_torch.ops import warp_eval as k8
-from torch_twin import cuda_device, make_scene, n, noisy_blocks, random_quads
+from torch_twin import coarse_masks, cuda_device, make_scene, n, noisy_blocks, random_quads
 
 P = segment.QuadParams()
 S = 49
@@ -125,24 +126,34 @@ def test_frontend_plan_refuses_what_does_not_fit():
         k1.plan(1080, 1920, 7, k1.MAX_OPEN_RADIUS + 1, 10)
 
 
+# (shape, kind, density, batch): widths at, above and between multiples
+# of 32, the five paths' grids, a serpentine, all-ones and all-zeros
+# planes, blob lattices (more roots than the pool, equal sizes across the
+# top-k boundary), batches of 5 and of 300 (more frames than SMs: smaller
+# blocks), and grids of 65,536 cells or more (device scratch), up to the
+# 1080x1920 grid of a 1080p frame at coarse_factor 1.
+CARD_CASES = [
+    ((40, 54), "random", 0.35, 3), ((40, 54), "random", 0.6, 3),
+    ((108, 192), "random", 0.3, 3), ((150, 200), "random", 0.3, 3),
+    ((120, 160), "random", 0.3, 3), ((192, 108), "random", 0.35, 2),
+    ((37, 33), "random", 0.35, 3), ((45, 65), "random", 0.35, 3), ((60, 203), "random", 0.35, 2),
+    ((108, 192), "serpentine", 0, 2), ((40, 54), "ones", 0, 2), ((40, 54), "zeros", 0, 2),
+    ((108, 192), "blobs", 0, 2), ((40, 54), "random", 0.35, 5), ((40, 54), "random", 0.35, 300),
+    ((256, 330), "random", 0.3, 2), ((1080, 1920), "random", 0.3, 1),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "shape,density,ds",
-    [((40, 54), 0.35, 6), ((40, 54), 0.6, 6), ((108, 192), 0.3, 10), ((150, 200), 0.3, 4)],
-)
-def test_coarse_fit_kernel_matches_plain(shape, density, ds):
-    """The last shape's planes exceed shared memory (global scratch path)."""
+@pytest.mark.parametrize("shape,kind,density,b", CARD_CASES)
+def test_coarse_fit_kernel_matches_plain(shape, kind, density, b):
     dev = cuda_device()
-    rng = np.random.default_rng(14)
-    c = torch.from_numpy(rng.random((3,) + shape) < density).to(dev)
+    c = coarse_masks(kind, b, shape, density).to(dev)
+    ds = 10 if shape[0] >= 100 else 4
     g1, g2, gic = k2.coarse_fit(c, P, ds)
     r1, r2, ric = k2.plain(c, P, ds)
     assert torch.equal(gic, ric)
     for got, ref in ((g1, r1), (g2, r2)):
-        for key in ("valid", "sizes", "qualifying", "roots"):
-            assert torch.equal(got[key], ref[key].to(got[key].dtype)), key
-        assert (got["centroids"] - ref["centroids"]).abs().max() <= 1e-3
-        assert k2.quad_mismatches(got, ref) == 0
+        _assert_fit_equal(got, ref)
 
 
 @pytest.mark.gpu
@@ -212,23 +223,24 @@ def test_detect_on_card_matches_cpu(kind):
     assert n(torch.as_tensor(got.grey)).shape == img.shape[:2]
 
 
-def _label_planes(shape, density, seed):
+def _label_planes(shape, density, seed, dev):
     rng = np.random.default_rng(seed)
-    c = torch.from_numpy(rng.random((2,) + shape) < density)
+    c = torch.from_numpy(rng.random((2,) + shape) < density).to(dev)
     return c, segment.label_planes(c, P)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(40, 54), (192, 108), (108, 192), (150, 200)])
-def test_coarse_labels_kernel_matches_plain(shape):
-    """Labels mode; the last shape's planes exceed shared memory."""
+@pytest.mark.parametrize("shape,kind,density,b", CARD_CASES)
+def test_coarse_labels_kernel_matches_plain(shape, kind, density, b):
+    """Labels mode, with and without the inner plane."""
     dev = cuda_device()
-    c, (r1, r2) = _label_planes(shape, 0.35, 31)
-    g1, g2 = k2.coarse_labels(c.to(dev), P)
-    assert torch.equal(g1.cpu(), r1) and torch.equal(g2.cpu(), r2)
+    c = coarse_masks(kind, b, shape, density, seed=31).to(dev)
+    r1, r2 = segment.label_planes(c, P)
+    g1, g2 = k2.coarse_labels(c, P)
+    assert torch.equal(g1, r1) and torch.equal(g2, r2)
     no_inner = segment.QuadParams(max_inner_candidates=0)
-    g1, g2 = k2.coarse_labels(c.to(dev), no_inner)
-    assert torch.equal(g1.cpu(), r1) and bool((g2 == shape[0] * shape[1]).all())
+    g1, g2 = k2.coarse_labels(c, no_inner)
+    assert torch.equal(g1, r1) and bool((g2 == shape[0] * shape[1]).all())
 
 
 def _assert_fit_equal(got, ref):
@@ -240,12 +252,12 @@ def _assert_fit_equal(got, ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "shape,k", [((40, 54), 32), ((192, 108), 96), ((108, 192), 160), ((108, 192), 300)]
+    "shape,k", [((40, 54), 32), ((192, 108), 96), ((108, 192), 160), ((108, 192), 300),
+                ((1080, 1920), 160)]
 )
 def test_rank_and_lane_kernels_match_plain(shape, k):
     dev = cuda_device()
-    _, (lab, _) = _label_planes(shape, 0.3, 32)
-    lab = lab.to(dev)
+    _, (lab, _) = _label_planes(shape, 0.3, 32, dev)
     kr = segment.rank_pool_size(k, shape[0] * shape[1])
     got = kfit.rank_roots(lab, kr, P.min_component_px)
     ref = segment.rank_pool(lab, kr, P.min_component_px)
@@ -265,20 +277,63 @@ def test_rank_and_lane_kernels_match_plain(shape, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,k1,k2,dup_skip", [
-    ((40, 54), 32, 12, True), ((192, 108), 32, 12, True), ((192, 108), 32, 12, False),
-    ((108, 192), 32, 0, False),
+@pytest.mark.parametrize("shape,kind,b,k1,k2,dup_skip", [
+    ((40, 54), "random", 2, 32, 12, True), ((192, 108), "random", 2, 32, 12, True),
+    ((192, 108), "random", 2, 32, 12, False), ((108, 192), "random", 2, 32, 0, False),
+    ((120, 160), "random", 3, 32, 12, True), ((60, 203), "random", 2, 32, 12, True),
+    ((37, 33), "random", 3, 32, 12, True), ((108, 192), "serpentine", 2, 32, 12, True),
+    ((40, 54), "ones", 2, 32, 12, True), ((40, 54), "zeros", 2, 32, 12, True),
+    ((108, 192), "blobs", 2, 32, 12, True), ((108, 192), "blobs", 2, 128, 128, True),
+    ((40, 54), "random", 5, 32, 12, True), ((40, 54), "random", 400, 32, 12, True),
+    ((256, 330), "random", 2, 32, 12, True), ((1080, 1920), "random", 1, 32, 12, True),
 ])
-def test_fused_fit_kernel_matches_plain(shape, k1, k2, dup_skip):
+def test_fused_fit_kernel_matches_plain(shape, kind, b, k1, k2, dup_skip):
     dev = cuda_device()
-    _, (l1, l2) = _label_planes(shape, 0.35, 33)
-    l1, l2 = l1.to(dev), l2.to(dev)
+    l1, l2 = segment.label_planes(coarse_masks(kind, b, shape, 0.35, seed=33).to(dev), P)
     got = kfit.fused_fit_batch(l1, l2, 10, P, k1, k2, dup_skip=dup_skip)
     ref = kfit.fused_fit_plain(l1, l2, 10, P, k1, k2, dup_skip=dup_skip)
     _assert_fit_equal(got[0], ref[0])
     assert (got[1] is None) == (ref[1] is None) == (k2 == 0)
     if k2:
         _assert_fit_equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("b,smem,threads", [
+    (128, 200_000, 1024), (132, 101_760, 1024), (133, 101_760, 512), (512, 101_760, 512),
+    (512, 40_000, 256), (512, 200_000, 1024), (300, 18_500, 320), (400, 18_500, 256),
+    (16, 0, 1024), (2, 0, 1024), (5, 18_500, 1024), (1000, 0, 256), (264, 0, 512),
+])
+def test_threads_per_block(b, smem, threads):
+    """Blocks of kernels 2 and 7: a batch that fits the card's 132 SMs
+    once gets 1,024 threads a frame; a larger batch as many blocks an SM
+    as it needs, at most 4 and as many as shared memory holds."""
+    got = kfit.threads_per_block(b, smem, 132)
+    assert got == threads
+    assert got % 32 == 0 and 64 <= got <= 1024
+    assert (1024 // got) * (smem + 1024) <= kfit.SMEM_SM or got == 1024
+
+
+@pytest.mark.gpu
+def test_kernel_layouts():
+    """Kernels 2, 5 and 7 keep the five paths' grids on chip, and a grid of
+    65,536 cells or more (a 1080p frame at coarse_factor 1) in device
+    scratch sized for it."""
+    cuda_device()
+    kr = segment.rank_pool_size(P.max_candidates, 108 * 192)
+    smem, ints = _build.layout("a3_coarse_layout", 108, 192, kr)
+    assert smem > 0 and ints == 108 * 192  # fit mode: the inner plane
+    for hc, wc in ((192, 108), (120, 160), (108, 192)):
+        smem, ints = _build.layout("a3_coarse_layout", hc, wc, 0)
+        assert smem > 0 and ints == 0
+        assert _build.layout("a3_fused_layout", hc, wc, kr)[0] > 0
+    for name, args in (
+        ("a3_coarse_layout", (1080, 1920, 0)), ("a3_coarse_layout", (1080, 1920, 1024)),
+        ("a3_fused_layout", (1080, 1920, 1024)), ("a3_coarse_layout", (256, 330, 0)),
+    ):
+        smem, ints = _build.layout(name, *args)
+        assert smem == 0 and ints > args[0] * args[1]
+    assert _build.layout("a3_rank_layout", 108, 192) == (4 * (109 + 108 * 6), 0)
+    assert _build.layout("a3_rank_layout", 1080, 1920) == (0, 1081 + 1080 * 60)
 
 
 @pytest.mark.gpu

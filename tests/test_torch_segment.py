@@ -18,7 +18,7 @@ from aruco3_tpu_torch import segment
 from aruco3_tpu_torch.ops import coarse_fit as k2
 from aruco3_tpu_torch.ops import frontend as k1
 from aruco3_tpu_torch.ops import refine as k3
-from torch_twin import assert_quads_tie_equivalent, n, t
+from torch_twin import assert_quads_tie_equivalent, coarse_masks, n, t
 
 P = segment.QuadParams()
 JP = jsegment.QuadParams()
@@ -67,6 +67,19 @@ def test_coarse_fit_plain_matches_jax(shape, density, kk1, kk2):
             np.testing.assert_array_equal(n(got[key]), np.asarray(ref[key]), err_msg=key)
         np.testing.assert_allclose(n(got["centroids"]), np.asarray(ref["centroids"]), atol=1e-4)
         assert_quads_tie_equivalent(got["quads"], ref["quads"], ref["centroids"], ref["sizes"])
+
+
+def test_label_planes_serpentine_matches_jax():
+    """A serpentine longer than the round limits close: the plain label
+    planes equal the JAX package's, and the outer plane holds more than one
+    label (a labelling run to convergence would give one)."""
+    c = n(coarse_masks("serpentine", 3, (40, 54)))
+    jl1, jl2 = _jax_coarse_fit(c, 32, 12)[:2]
+    l1, l2 = segment.label_planes(t(c), P)
+    np.testing.assert_array_equal(n(l1), np.asarray(jl1))
+    np.testing.assert_array_equal(n(l2), np.asarray(jl2))
+    outer = n(l1)[0]
+    assert len(np.unique(outer[outer < outer.size])) > 1
 
 
 def test_merge_fits_matches_jax():

@@ -63,6 +63,42 @@ def random_quads(rng, count, lo, hi, h, w):
     return np.array(out, np.float32)
 
 
+def serpentine(h, w):
+    """A one-cell-wide path winding over an (h, w) grid: rows 1, 3, 5, ...
+    from column 1 to w - 2, each joined to the next at alternating ends.
+    Its component is far longer than the default round limits close."""
+    m = np.zeros((h, w), bool)
+    rows = list(range(1, h - 1, 2))
+    for i, y in enumerate(rows):
+        m[y, 1 : w - 1] = True
+        if i + 1 < len(rows):
+            m[y + 1, w - 2 if i % 2 == 0 else 1] = True
+    return m
+
+
+def coarse_masks(kind, b, shape, density=0.35, seed=14):
+    """(b, h, w) bool coarse masks: ``random`` (cells black with
+    ``density``), ``serpentine``, ``ones``, ``zeros`` or ``blobs`` (2x2
+    blobs on a 3-cell lattice with 10% of cells dropped: many components
+    of equal size, more than a rank pool of 1,024 holds on 108x192)."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    if kind == "random":
+        c = rng.random((b, h, w)) < density
+    elif kind == "serpentine":
+        c = np.broadcast_to(serpentine(h, w), (b, h, w)).copy()
+    elif kind == "ones":
+        c = np.ones((b, h, w), bool)
+    elif kind == "zeros":
+        c = np.zeros((b, h, w), bool)
+    elif kind == "blobs":
+        yy, xx = np.mgrid[:h, :w]
+        c = ((yy % 3 < 2) & (xx % 3 < 2))[None] & (rng.random((b, h, w)) < 0.9)
+    else:
+        raise ValueError(kind)
+    return torch.from_numpy(np.ascontiguousarray(c))
+
+
 def noisy_blocks(rng, batch, h, w):
     """Grey frames with dark rectangles of several sizes plus noise: enough
     structure for every mask and label stage to be non-trivial."""

@@ -1,0 +1,139 @@
+"""Kernels 2 and 7 cut after each phase: device ms per batch on one card.
+
+    cd <checkout> && python <repo>/tools/torch_phase_cuts.py current|parent
+
+Run from the root of a checkout whose kernel sources the anchors below
+name: ``current`` this tree's, ``parent`` those of commit 6b92655 (the
+kernels before their redesign, which the "before" column of PERF.md's
+breakdown measures).  Each cut is a copy of the checkout's
+``aruco3_tpu_torch`` under ``build/cuts/`` with a ``return`` put before
+one anchor, in ``csrc/coarse_fit.cu`` (kernel 2) or ``csrc/fit_common.cuh``
+(kernel 7's fit).  All copies build at once, each through its own
+``_build``; then each is timed in a process of its own that imports it:
+the landscape (fit mode), small (labels mode, batch 512) and portrait
+(labels mode) coarse planes of ``chip_smoke.py``'s paths through kernel 2,
+and the portrait and small label planes through kernel 7, by
+``chip_smoke.device_ms``.  The uncut checkout is the last row of each
+table.  An anchor that is not found once fails the run.  Needs the card.
+"""
+
+import importlib.util
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+RET = "if (threadIdx.x >= 0) return;\n"
+TOOL = Path(__file__).resolve()
+# (name, file, anchor): the cut goes before the anchor.
+CUTS = {
+    "parent": (
+        [
+            ("outer fill", "coarse_fit.cu",
+             "  for (int p = threadIdx.x; p < P; p += blockDim.x) {\n    const int q = qof(p, g);\n    F1[q]"),
+            ("+outer CCL", "coarse_fit.cu",
+             "  const a3fit::Twins none = {nullptr, nullptr, nullptr, 0};\n  if (labels_only)"),
+            ("+outer fit", "coarse_fit.cu", "  // Inner pass (segment.label_planes)"),
+            ("+inner depth 0", "coarse_fit.cu", "  uint8_t* NOTLEV = OK;"),
+            ("+peel depths", "coarse_fit.cu", "  if (labels_only) return;\n  a3fit::fit_plane(LAB2"),
+        ],
+        [
+            ("rank pool", "fit_common.cuh", "  topk_pick(s.roots_r"),
+            ("+top-k", "fit_common.cuh", "  if (threadIdx.x == 0) *o.qual = n_roots;"),
+        ],
+    ),
+    "current": (
+        [
+            ("outer fill", "coarse_fit.cu",
+             "  each_word(g, [&](int q, int, int) { F1[q] = M2[q] | (WHITE[q] & ~R[q]); });"),
+            ("+outer CCL", "coarse_fit.cu", "  if (labels_only) {\n    int* L1"),
+            ("+outer fit", "coarse_fit.cu", "  // Inner pass (segment.label_planes)"),
+            ("+inner depth 0", "coarse_fit.cu", "  uint32_t* NOTLEV = OK;"),
+            ("+peel depths", "coarse_fit.cu",
+             "  if (labels_only) return;\n  // The inner plane back on chip"),
+        ],
+        [
+            ("rank pool", "fit_common.cuh", "  topk_select(s.sizes_r, kr, k, s.sel, s.topk);"),
+            ("+top-k", "fit_common.cuh", "  if (threadIdx.x == 0) *o.qual = n_roots;"),
+            ("+members", "fit_common.cuh",
+             "  const WarpRed red{};\n  for (int l = warp; l < k; l += nwarps) {"),
+        ],
+    ),
+}
+
+
+def smoke():
+    """chip_smoke.py beside this tool (the port it drives is the cwd's)."""
+    spec = importlib.util.spec_from_file_location("smoke", TOOL.parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_variant(kernel: str, name: str) -> None:
+    """In a process of its own, from the root of a (cut) copy: device ms per
+    batch of kernel 2 ("k2"), kernel 7 ("k7") or both ("all")."""
+    sys.path.insert(0, os.getcwd())
+    import numpy as np
+    import torch
+
+    from aruco3_tpu_torch import segment
+    from aruco3_tpu_torch.ops import coarse_fit as k2
+    from aruco3_tpu_torch.ops import fit as kfit
+    from aruco3_tpu_torch.ops import frontend as k1
+
+    cs = smoke()
+    paths, _ = cs.path_inputs()
+    P = segment.QuadParams()
+    coarse = {}
+    for path, ds in (("landscape", 10), ("small", 1), ("portrait", 10)):
+        frames = paths[path][1]
+        g = torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(frames[0], (cs.BATCHES[path],) + frames.shape[1:]))).cuda()
+        coarse[path] = (k1.threshold_open_pool(g, 7, 2, ds)[0], ds)
+        del g
+    if kernel in ("k2", "all"):
+        for path, mode in (("landscape", "fit"), ("small", "labels"), ("portrait", "labels")):
+            c, ds = coarse[path]
+            call = (lambda: k2.coarse_fit(c, P, ds)) if mode == "fit" else (lambda: k2.coarse_labels(c, P))
+            ms = cs.device_ms(call, reps=5)
+            print(f"k2 cut {path} {mode} batch {c.shape[0]} {name}: device_ms {ms:.4f}", flush=True)
+    if kernel in ("k7", "all"):
+        for path in ("portrait", "small"):
+            c, ds = coarse[path]
+            l1, l2 = k2.coarse_labels(c, P)
+            ms = cs.device_ms(lambda: kfit.fused_fit_batch(l1, l2, ds, P, 32, 12, dup_skip=True),
+                              reps=5)
+            print(f"k7 cut {path} batch {c.shape[0]} {name}: device_ms {ms:.4f}", flush=True)
+
+
+def main(which: str) -> None:
+    k2_cuts, k7_cuts = CUTS[which]
+    root = Path("build/cuts")
+    shutil.rmtree(root, ignore_errors=True)
+    variants = []  # (directory, kernel, name)
+    for kernel, table in (("k2", k2_cuts), ("k7", k7_cuts)):
+        for i, (name, fname, anchor) in enumerate(table):
+            d = root / f"{kernel}_{i}"
+            shutil.copytree("aruco3_tpu_torch", d / "aruco3_tpu_torch",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            src = d / "aruco3_tpu_torch" / "csrc" / fname
+            text = src.read_text()
+            assert text.count(anchor) == 1, (which, name, anchor)
+            src.write_text(text.replace(anchor, RET + anchor))
+            variants.append((d, kernel, name))
+    variants.append((Path("."), "all", "all"))
+    build = [sys.executable, "-c", "from aruco3_tpu_torch.ops import _build; _build.build()"]
+    procs = [subprocess.Popen(build, cwd=d) for d, _, _ in variants]
+    assert all(p.wait() == 0 for p in procs), "a cut did not build"
+    print("card", smoke().smi_line(), flush=True)
+    for d, kernel, name in variants:
+        subprocess.run([sys.executable, str(TOOL), "--time", kernel, name], cwd=d, check=True)
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "--time":
+        time_variant(sys.argv[2], sys.argv[3])
+    else:
+        main(sys.argv[1])
