@@ -2,21 +2,25 @@
 // (fit.cu): one spelling of segment.fit_quads' exact float32 expressions.
 //
 // The pieces are the TPU fit's (aruco3_tpu/ops/fit_pallas.py):
-//   * rank_pool: the admission pre-filter (_rank_prep, wrap-around offsets
-//     of segment.ADMIT_OFFSETS), the raster rank of admitted roots and the
-//     (root, size) pair of each rank below min(n_roots, kr) (_rank_pool);
+//   * is_admitted_root, pool_slot, claim: the admission pre-filter
+//     (_rank_prep, wrap-around offsets of segment.ADMIT_OFFSETS), a root's
+//     slot in an ascending pool, warp-aggregated counts (kernels 2, 5-7);
+//   * rank_pool: the raster rank of admitted roots and the (root, size)
+//     pair of each rank below min(n_roots, kr) (_rank_pool), block-wide
+//     (kernels 2 and 7; kernel 5 splits a frame over a cluster);
 //   * topk_select: top-k of the pool by (size descending, pool position
 //     ascending), the order of lax.top_k on the raster-ordered pool;
-//   * lane_chain: the per-lane centroid, extreme-point quad and
-//     containment fraction (_lane_chain);
-//   * fit_plane: the three in a row for one label plane (kernel 2's tail
-//     and kernel 7).
+//   * lane_chain: one warp's centroid, extreme-point quad and containment
+//     fraction of one lane over its member list (_lane_chain; kernels 2, 6
+//     and 7);
+//   * fit_plane: rank pool, top-k and lane chains in a row for one label
+//     plane (kernel 2's tail and kernel 7).
 // The build has no -rdc, so shared device code lives here, in a header.
 //
-// What bounds the fit on an H100: latency, not bytes.  A frame's label
-// plane (in shared memory as uint16_t where the grid has fewer than 65,536
-// cells and it fits; else in device memory, with the scratch below) is
-// read three times by one block: the admission pass (a warp per
+// What bounds the fit on an H100: latency, not bytes.  In fit_plane a
+// frame's label plane (in shared memory as uint16_t where the grid has
+// fewer than 65,536 cells and it fits; else in device memory, with the
+// scratch below) is read three times by one block: the admission pass (a warp per
 // row, one ballot per 32 cells; the bits are kept, so each root's raster
 // rank follows from one scan of the row counts), the count pass (each
 // member cell finds its root's pool slot by binary search in the
@@ -375,149 +379,73 @@ static __device__ __forceinline__ T warp_sum(T v) {
   return __shfl_sync(0xffffffffu, v, 0);
 }
 
-// Reductions of one warp: the lane chain of kernels 2 and 7.
-struct WarpRed {
-  __device__ int rank() const { return threadIdx.x & 31; }
-  __device__ int size() const { return 32; }
-  template <class T>
-  __device__ T sum(T v) const { return warp_sum(v); }
-  __device__ int argmax(float bs, int bi) const {
-    warp_argmax_pair(bs, bi);
-    return bi;
-  }
-};
-
-// Reductions of a whole block of NW warps: the lane chain of kernel 6.
-// Every thread gets the result; the shared scratch is reused after a
-// trailing barrier.
-template <int NW>
-struct BlockRed {
-  double* sd;  // NW
-  float* sf;   // NW
-  int* si;     // NW
-  __device__ int rank() const { return threadIdx.x; }
-  __device__ int size() const { return blockDim.x; }
-  __device__ double sum(double v) const {
-    v = warp_sum(v);
-    if ((threadIdx.x & 31) == 0) sd[threadIdx.x >> 5] = v;
-    __syncthreads();
-    double t = 0.0;
-    for (int w = 0; w < NW; ++w) t += sd[w];
-    __syncthreads();
-    return t;
-  }
-  __device__ int sum(int v) const {
-    v = warp_sum(v);
-    if ((threadIdx.x & 31) == 0) si[threadIdx.x >> 5] = v;
-    __syncthreads();
-    int t = 0;
-    for (int w = 0; w < NW; ++w) t += si[w];
-    __syncthreads();
-    return t;
-  }
-  __device__ int argmax(float bs, int bi) const {
-    warp_argmax_pair(bs, bi);
-    if ((threadIdx.x & 31) == 0) {
-      sf[threadIdx.x >> 5] = bs;
-      si[threadIdx.x >> 5] = bi;
-    }
-    __syncthreads();
-    float s = -INFINITY;
-    int i = 0x7fffffff;
-    for (int w = 0; w < NW; ++w) amax_update(sf[w], si[w], s, i);
-    __syncthreads();
-    return i;
-  }
-};
-
-// The cells a lane chain walks: every cell of the plane whose label is
-// `root` (kernel 6), or a compact member list (kernels 2 and 7).
-struct PlaneMembers {
-  const int* lab;
-  int P, root;
-  __device__ int n() const { return P; }
-  __device__ bool get(int i, int& p) const {
-    p = i;
-    return lab[i] == root;
-  }
-};
-
-template <class Idx>
-struct ListMembers {
-  const Idx* m;
-  int count;
-  __device__ int n() const { return count; }
-  __device__ bool get(int i, int& p) const {
-    p = static_cast<int>(m[i]);
-    return true;
-  }
-};
-
 struct LaneFit {
   float qx[4], qy[4];  // corners A, B, C, D
   float cenx, ceny, frac;
 };
 
-// segment.fit_quads' chain for a lane with `size` members (size >= 0):
-// centroid, corner A farthest from it, corner C farthest from A, B and D
-// the extremes of the cross product against A->C, then the fraction of
-// members inside the quad expanded by slack * edge length.  Each arg-max
-// takes the first cell among equal scores (cell 0 when the lane has no
-// member, as the plain version's masked argmax does).
-template <class Red, class Mem>
-static __device__ __forceinline__ LaneFit lane_chain(const Red& red, const Mem& mem, int wc,
-                                                     int size, int ds, float slack) {
-  const int r0 = red.rank(), rs = red.size(), n = mem.n();
+// segment.fit_quads' chain for one lane of the given size (the divisor of
+// its centroid and containment), by one warp over the lane's n >= 0
+// member cells m[0..n): centroid, corner A farthest from it, corner C
+// farthest from A, B and D the extremes of the cross product against
+// A->C, then the fraction of members inside the quad expanded by slack *
+// edge length.  Each arg-max takes the first cell among equal scores
+// (cell 0 when the lane has no member, as the plain version's masked
+// argmax does).
+template <class Idx>
+static __device__ __forceinline__ LaneFit lane_chain(const Idx* m, int n, int wc, int size,
+                                                     int ds, float slack) {
+  const int r0 = threadIdx.x & 31;
   const float szf = fmaxf(static_cast<float>(size), 1.0f);
   double sx = 0.0, sy = 0.0;
-  for (int i = r0; i < n; i += rs) {
-    int p;
-    if (!mem.get(i, p)) continue;
+  for (int i = r0; i < n; i += 32) {
+    const int p = static_cast<int>(m[i]);
     sx += static_cast<double>(cell_x(p, wc, ds));
     sy += static_cast<double>(cell_y(p, wc, ds));
   }
   LaneFit f;
-  f.cenx = static_cast<float>(red.sum(sx)) / szf;
-  f.ceny = static_cast<float>(red.sum(sy)) / szf;
+  f.cenx = static_cast<float>(warp_sum(sx)) / szf;
+  f.ceny = static_cast<float>(warp_sum(sy)) / szf;
 
   auto first = [](int i) { return i == 0x7fffffff ? 0 : i; };
   float bs = -INFINITY;
   int bi = 0x7fffffff;
-  for (int i = r0; i < n; i += rs) {
-    int p;
-    if (!mem.get(i, p)) continue;
+  for (int i = r0; i < n; i += 32) {
+    const int p = static_cast<int>(m[i]);
     const float dxx = cell_x(p, wc, ds) - f.cenx;
     const float dyy = cell_y(p, wc, ds) - f.ceny;
     amax_update(dxx * dxx + dyy * dyy, p, bs, bi);
   }
-  const int ia = first(red.argmax(bs, bi));
+  warp_argmax_pair(bs, bi);
+  const int ia = first(bi);
   const float ax = cell_x(ia, wc, ds), ay = cell_y(ia, wc, ds);
 
   bs = -INFINITY;
   bi = 0x7fffffff;
-  for (int i = r0; i < n; i += rs) {
-    int p;
-    if (!mem.get(i, p)) continue;
+  for (int i = r0; i < n; i += 32) {
+    const int p = static_cast<int>(m[i]);
     const float dxx = cell_x(p, wc, ds) - ax;
     const float dyy = cell_y(p, wc, ds) - ay;
     amax_update(dxx * dxx + dyy * dyy, p, bs, bi);
   }
-  const int ic = first(red.argmax(bs, bi));
+  warp_argmax_pair(bs, bi);
+  const int ic = first(bi);
   const float qcx = cell_x(ic, wc, ds), qcy = cell_y(ic, wc, ds);
 
   const float dx = qcx - ax;
   const float dy = qcy - ay;
   float bsb = -INFINITY, bsd = -INFINITY;
   int bib = 0x7fffffff, bid = 0x7fffffff;
-  for (int i = r0; i < n; i += rs) {
-    int p;
-    if (!mem.get(i, p)) continue;
+  for (int i = r0; i < n; i += 32) {
+    const int p = static_cast<int>(m[i]);
     const float cross = (cell_x(p, wc, ds) - ax) * dy - (cell_y(p, wc, ds) - ay) * dx;
     amax_update(cross, p, bsb, bib);
     amax_update(-cross, p, bsd, bid);
   }
-  const int ib = first(red.argmax(bsb, bib));
-  const int id = first(red.argmax(bsd, bid));
+  warp_argmax_pair(bsb, bib);
+  warp_argmax_pair(bsd, bid);
+  const int ib = first(bib);
+  const int id = first(bid);
 
   float* qx = f.qx;
   float* qy = f.qy;
@@ -545,15 +473,14 @@ static __device__ __forceinline__ LaneFit lane_chain(const Red& red, const Mem& 
     rhs[e] = -slack * elen - c0e;
   }
   int inside = 0;
-  for (int i = r0; i < n; i += rs) {
-    int p;
-    if (!mem.get(i, p)) continue;
+  for (int i = r0; i < n; i += 32) {
+    const int p = static_cast<int>(m[i]);
     const float px = cell_x(p, wc, ds), py = cell_y(p, wc, ds);
     bool in = true;
     for (int e = 0; e < 4; ++e) in = in && (py * av[e] - px * bv[e] >= rhs[e]);
     inside += in;
   }
-  f.frac = static_cast<float>(red.sum(inside)) / szf;
+  f.frac = static_cast<float>(warp_sum(inside)) / szf;
   return f;
 }
 
@@ -633,7 +560,6 @@ static __device__ void fit_plane(const Labels<T>& lab, int k, int kr, const FitO
   }
   __syncthreads();
 
-  const WarpRed red{};
   for (int l = warp; l < k; l += nwarps) {
     const int j = s.sel[l];
     const int sz = s.sizes_r[j];
@@ -643,8 +569,7 @@ static __device__ void fit_plane(const Labels<T>& lab, int k, int kr, const FitO
       if (lane == 0) write_lane(o, l, nullptr, root, size, sz >= 0, pr);
       continue;
     }
-    const ListMembers<Idx> mem{members + s.lane_off[l], size};
-    const LaneFit f = lane_chain(red, mem, wc, size, pr.ds, pr.slack);
+    const LaneFit f = lane_chain(members + s.lane_off[l], size, wc, size, pr.ds, pr.slack);
     if (lane == 0) write_lane(o, l, &f, root, size, true, pr);
   }
   __syncthreads();

@@ -50,9 +50,10 @@ SIGNATURES = {
     "a3_coarse_layout": [_INT] * 3 + [_PTR],
     "a3_coarse_fit": [_PTR] * 15 + [_INT] * 15 + [_FLT, _FLT] + [_INT] * 2 + [_LL, _PTR],
     "a3_coarse_labels": [_PTR] * 4 + [_INT] * 12 + [_LL, _PTR],
-    "a3_rank_layout": [_INT] * 2 + [_PTR],
-    "a3_rank_roots": [_PTR] * 5 + [_LL] + [_INT] * 5 + [_PTR],
-    "a3_fit_lanes": [_PTR] * 7 + [_INT] * 5 + [_FLT, _PTR],
+    "a3_rank_layout": [_INT] * 4 + [_PTR],
+    "a3_rank_roots": [_PTR] * 5 + [_LL] + [_INT] * 6 + [_PTR],
+    "a3_lanes_layout": [_INT] * 2 + [_PTR],
+    "a3_fit_lanes": [_PTR] * 8 + [_LL] + [_INT] * 6 + [_FLT, _PTR],
     "a3_fused_layout": [_INT] * 3 + [_PTR],
     "a3_fused_fit": [_PTR] * 15 + [_INT] * 8 + [_FLT, _FLT] + [_INT] * 3 + [_LL, _PTR],
     "a3_refine": [_PTR] * 8 + [_INT] * 8 + [_PTR],
@@ -143,10 +144,12 @@ def fn(name: str):
     return f
 
 
+@functools.lru_cache(maxsize=None)
 def layout(name: str, *args: int) -> tuple[int, int]:
-    """(bytes of shared memory a block, ints of device scratch a frame)
-    that a kernel takes, from the library's ``a3_*_layout`` export
-    ``name``: the kernel's source decides where its state lives."""
+    """(bytes of shared memory a block, ints of device scratch a frame or
+    block) that a kernel takes, from the library's ``a3_*_layout`` export
+    ``name``: the kernel's source decides where its state lives.  Looked
+    up once per shape (a wrapper asks on every launch)."""
     out = (ctypes.c_longlong * 2)()
     check(fn(name)(*args, out), name)
     return int(out[0]), int(out[1])

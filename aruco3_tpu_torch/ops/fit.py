@@ -4,10 +4,11 @@ Counterpart of ``aruco3_tpu/ops/fit_pallas.py``.  Each wrapper launches
 its kernel from ``csrc/fit.cu`` on CUDA tensors and runs its plain version
 on CPU tensors:
 
-* ``rank_roots`` (kernel 5): the raster rank pool of a label plane
-  (plain: ``segment.rank_pool``);
-* ``fit_lanes`` (kernel 6): the fit chain of selected lanes (plain:
-  ``segment.fit_lanes``);
+* ``rank_roots`` (kernel 5): the raster rank pool of a label plane, a
+  frame on a cluster of ``rank_cluster`` blocks (plain:
+  ``segment.rank_pool``);
+* ``fit_lanes`` (kernel 6): the fit chain of selected lanes, ``lane_group``
+  lanes a block (plain: ``segment.fit_lanes``);
 * ``fused_fit_batch`` (kernel 7): rank pool, top-k and fit chain of both
   label planes in one launch (plain: ``fused_fit_plain``), or, when a lane
   count is above 128, ``fit_quads_batch`` on each plane: kernel 5, a
@@ -15,7 +16,8 @@ on CPU tensors:
 
 Each kernel's source decides where a frame's state lives (shared memory
 or device scratch, ``_build.layout``); ``threads_per_block`` sizes the
-blocks of kernels 2 and 7 from the batch and that shared memory.
+blocks of kernels 2 and 7 from the batch and that shared memory,
+``rank_cluster`` and ``lane_group`` split kernels 5 and 6 over the SMs.
 
 The fit dicts are those of ``segment.fit_quads``: quads (B, K, 4, 2),
 valid (B, K), roots (B, K), centroids (B, K, 2), sizes (B, K) and
@@ -38,6 +40,10 @@ fused_count = Counter()
 MAX_LANES = 128
 MAX_POOL = 1024
 SMEM_SM = 233_472  # shared memory of an H100 SM; each resident block also takes 1 KB
+# Largest cluster of kernel 5 (the portable size) and lane group of kernel 6
+# (csrc/fit.cu RANK_CLUSTER_MAX, LANE_GROUP_MAX).
+RANK_CLUSTER_MAX = 8
+LANE_GROUP_MAX = 64
 
 
 def threads_per_block(b: int, smem: int, sms: int) -> int:
@@ -50,8 +56,30 @@ def threads_per_block(b: int, smem: int, sms: int) -> int:
     return 1024 // per_sm // 32 * 32
 
 
+def rank_cluster(b: int, sms: int) -> int:
+    """Blocks of kernel 5's cluster a frame, for b frames on ``sms`` SMs:
+    the largest power of two at most min(8, sms // b), and at least 1 (a
+    batch that fills the SMs runs a frame a block)."""
+    c = max(1, min(RANK_CLUSTER_MAX, sms // max(b, 1)))
+    return 1 << (c.bit_length() - 1)
+
+
+def lane_group(k: int, b: int, sms: int, on_chip: bool = True) -> int:
+    """Lanes a block of kernel 6 fits, for k lanes of b frames on ``sms``
+    SMs: the k lanes split over about ``sms // b`` blocks a frame (one
+    block an SM), at most ``LANE_GROUP_MAX`` lanes a block.  Where a
+    block's member list is not on chip (``on_chip`` False: a plane of
+    device scratch a block, ``a3_lanes_layout``), the fewest blocks.
+    Block x fits lanes [x * G, (x + 1) * G) of its frame."""
+    if not on_chip:
+        return max(1, min(LANE_GROUP_MAX, k))
+    per_frame = max(1, sms // max(b, 1))
+    return max(1, min(LANE_GROUP_MAX, -(-k // per_frame)))
+
+
 def scratch(b: int, ints: int, dev) -> torch.Tensor:
-    """Device scratch of ``ints`` a frame (one int when a kernel takes none)."""
+    """Device scratch of ``ints`` a frame (or block) for b of them (one int
+    when a kernel takes none)."""
     return torch.empty((b, ints) if ints else (1,), dtype=torch.int32, device=dev)
 
 
@@ -86,8 +114,9 @@ def _labels_ptr(labels: torch.Tensor, name: str, shape=None):
 
 def rank_roots(labels: torch.Tensor, kr: int, min_px: int):
     """(roots_r, sizes_r, n_roots) of (B, Hc, Wc) int32 label planes, as
-    ``segment.rank_pool`` returns them.  CUDA tensors launch kernel 5, CPU
-    tensors take the plain version."""
+    ``segment.rank_pool`` returns them.  CUDA tensors launch kernel 5 (a
+    frame on a cluster of ``rank_cluster`` blocks), CPU tensors take the
+    plain version."""
     if labels.device.type == "cpu":
         rank_count.plain_calls += 1
         return segment.rank_pool(labels, kr, min_px)
@@ -97,12 +126,13 @@ def rank_roots(labels: torch.Tensor, kr: int, min_px: int):
     roots_r = torch.empty((b, kr), dtype=torch.int32, device=dev)
     sizes_r = torch.empty((b, kr), dtype=torch.int32, device=dev)
     n_roots = torch.empty((b,), dtype=torch.int32, device=dev)
-    per_frame = _build.layout("a3_rank_layout", hc, wc)[1]
+    c = rank_cluster(b, _build.sm_count(dev.index))
+    per_frame = _build.layout("a3_rank_layout", hc, wc, kr, c)[1]
     work = scratch(b, per_frame, dev)
     err = _build.lib().a3_rank_roots(
         lab, roots_r.data_ptr(), sizes_r.data_ptr(), n_roots.data_ptr(),
         work.data_ptr(), per_frame,
-        b, hc, wc, kr, int(min_px), _build.stream(),
+        b, hc, wc, kr, int(min_px), c, _build.stream(),
     )
     _build.check(err, "a3_rank_roots")
     rank_count.launches += 1
@@ -119,7 +149,8 @@ def fit_lanes(
 ):
     """(quads, centroids, frac) of the selected lanes, as
     ``segment.fit_lanes`` returns them (zeros where ``use`` is False).
-    CUDA tensors launch kernel 6, CPU tensors take the plain version."""
+    CUDA tensors launch kernel 6 (``lane_group`` lanes a block), CPU
+    tensors take the plain version."""
     if labels.device.type == "cpu":
         lanes_count.plain_calls += 1
         return segment.fit_lanes(labels, roots, sizes, use, ds, containment_slack)
@@ -130,13 +161,16 @@ def fit_lanes(
     quads = torch.empty((b, k, 4, 2), dtype=torch.float32, device=dev)
     cents = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
     frac = torch.empty((b, k), dtype=torch.float32, device=dev)
+    per_block = _build.layout("a3_lanes_layout", hc, wc)[1]
+    g = lane_group(k, b, _build.sm_count(dev.index), per_block == 0)
+    work = scratch(b * -(-k // g), per_block, dev)
     err = _build.lib().a3_fit_lanes(
         lab,
         _build.checked_ptr(roots, torch.int32, (b, k), "roots"),
         _build.checked_ptr(sizes, torch.int32, (b, k), "sizes"),
         _build.checked_ptr(use, torch.bool, (b, k), "use"),
-        quads.data_ptr(), cents.data_ptr(), frac.data_ptr(),
-        b, hc, wc, k, ds, _slack(containment_slack, ds), _build.stream(),
+        quads.data_ptr(), cents.data_ptr(), frac.data_ptr(), work.data_ptr(), per_block,
+        b, hc, wc, k, g, ds, _slack(containment_slack, ds), _build.stream(),
     )
     _build.check(err, "a3_fit_lanes")
     lanes_count.launches += 1

@@ -33,6 +33,9 @@ Phases, each printing lines of numbers:
 3. kernels: each kernel of each path against its plain PyTorch version on
    the card, at the path's shapes (4 frames; 2 for dense), each kernel fed
    the previous kernel's real outputs; raises if a contract is broken.
+   Dense checks kernels 5 and 6 on both label planes (the inner one as
+   ``rank_roots:inner`` and ``fit_lanes:inner``), after a line with the
+   cluster size of kernel 5 and the lane group of kernel 6 per plane.
    Kernel 8 also decodes its samples and those of its plain version into
    the same cell grids;
 4. paths: each path driven once, every launch count set to 0 just before
@@ -91,6 +94,8 @@ MARKER_MM = 40.0
 # Noref corners are the coarse fit's, within ~ds px of the truth (the JAX
 # package's worst on the landscape frame is 9.46 px).
 NOREF_TOL_PX = 12.0
+# Phase-3 tag of a kernel's call on the inner label plane (dense: kernels 5, 6).
+INNER = ":inner"
 # Phase-5 batch of each path.
 BATCHES = {"landscape": 128, "portrait": 128, "dense": 16, "noref": 128, "small": 512}
 HBM_BYTES_PER_S = 3.35e12
@@ -289,14 +294,17 @@ def stage_inputs(frames, det):
         args["coarse_labels"] = (coarse, params)
         l1, l2 = coarse_fit.coarse_labels(*args["coarse_labels"])
         if max(k1, k2) > fit.MAX_LANES:
-            kr = segment.rank_pool_size(k1, l1.shape[1] * l1.shape[2])
-            args["rank_roots"] = (l1, kr, params.min_component_px)
-            roots_r, sizes_r, _ = fit.rank_roots(*args["rank_roots"])
-            roots, sizes = segment.select_lanes(roots_r, sizes_r, k1)
-            args["fit_lanes"] = (
-                l1, roots.contiguous(), sizes.clamp(min=0).contiguous(),
-                (sizes >= 0).contiguous(), ds, params.containment_slack,
-            )
+            for tag, lab, k in (("", l1, k1), (INNER, l2, k2)):
+                if k <= 0:
+                    continue
+                kr = segment.rank_pool_size(k, lab.shape[1] * lab.shape[2])
+                args["rank_roots" + tag] = (lab, kr, params.min_component_px)
+                roots_r, sizes_r, _ = fit.rank_roots(*args["rank_roots" + tag])
+                roots, sizes = segment.select_lanes(roots_r, sizes_r, k)
+                args["fit_lanes" + tag] = (
+                    lab, roots.contiguous(), sizes.clamp(min=0).contiguous(),
+                    (sizes >= 0).contiguous(), ds, params.containment_slack,
+                )
         else:
             args["fused_fit"] = (l1, l2, ds, params, k1, k2, True)
         fit1, fit2 = fit.fused_fit_batch(l1, l2, ds, params, k1, k2, dup_skip=True)
@@ -332,6 +340,30 @@ def stage_inputs(frames, det):
         valid & h_valid, s, det.dictionary.get_mark_size(),
     )
     return args, None
+
+
+def kernel_of(name: str) -> str:
+    """The kernel a phase-3 entry checks (``fit_lanes:inner`` -> ``fit_lanes``)."""
+    return name.split(":")[0]
+
+
+def log_fit_split(path, args) -> None:
+    """Kernel 5's cluster size and kernel 6's lane group, per label plane."""
+    import torch
+
+    from aruco3_tpu_torch.ops import _build, fit
+
+    sms = _build.sm_count(torch.cuda.current_device())
+    for tag in ("", INNER):
+        if "fit_lanes" + tag not in args:
+            continue
+        lab, roots = args["fit_lanes" + tag][:2]
+        b, k = roots.shape
+        on_chip = _build.layout("a3_lanes_layout", *lab.shape[1:])[1] == 0
+        g = fit.lane_group(k, b, sms, on_chip)
+        log("fit split", path=path, plane=tag[1:] or "outer", batch=b, sms=sms, lanes=k,
+            kr=args["rank_roots" + tag][1], rank_cluster=fit.rank_cluster(b, sms), lane_group=g,
+            lane_blocks=b * -(-k // g), members_on_chip=on_chip)
 
 
 def fit_counts(g, r, tag=""):
@@ -411,26 +443,29 @@ def compare_kernels(path, args, params, tail=None) -> dict:
     from aruco3_tpu_torch.ops import fit
 
     out = {}
-    if "fit_lanes" in args:
-        lab, _, sizes, _, ds, _ = args["fit_lanes"]
+    log_fit_split(path, args)
+    for tag in ("", INNER):
+        if "fit_lanes" + tag not in args:
+            continue
+        lab, _, sizes, _, ds, _ = args["fit_lanes" + tag]
         k = sizes.shape[1]
         counts, err = fit_counts(fit.fit_quads_batch(lab, ds, params, k),
                                  segment.fit_quads(lab, ds, params, k))
-        log("kernel fit_quads_batch", path=path, centroid_max_abs_err=err, **counts)
+        log("kernel fit_quads_batch" + tag, path=path, centroid_max_abs_err=err, **counts)
         require(sum(counts.values()) == 0 and err <= 1e-3,
-                f"fit_quads_batch ({path}): outputs differ from segment.fit_quads")
+                f"fit_quads_batch{tag} ({path}): outputs differ from segment.fit_quads")
     table = wrappers()
     for name, a in args.items():
-        kernel, plain = table[name]
+        kernel, plain = table[kernel_of(name)]
         got = kernel(*a)
         ref = plain(*a)
-        counts, err = compare(name, a, got, ref, tail)
+        counts, err = compare(kernel_of(name), a, got, ref, tail)
         counts.pop("valid_lanes_x", None)
         log(f"kernel {name}", path=path, max_abs_err=err, **counts)
         require(sum(counts.values()) == 0, f"{name} ({path}): outputs differ from the plain version")
         limit = 1e-3 if name != "frontend" else 0.0
         require(err <= limit, f"{name} ({path}): max abs error {err} above {limit}")
-        out[name] = (err, *work(name, a, got))
+        out[name] = (err, *work(kernel_of(name), a, got))
     torch.cuda.synchronize()
     return out
 
@@ -536,7 +571,7 @@ def drive(path, det, frames, kernels_of_path):
     log(f"path {path} counts", **{f"launches_{k}": v for k, v in launches.items()},
         **{f"plain_calls_{k}": v for k, v in plains.items()})
     for name, n in launches.items():
-        if name in kernels_of_path:
+        if name in {kernel_of(k) for k in kernels_of_path}:
             require(n > 0, f"{path}: kernel {name} was not launched")
         else:
             require(n == 0, f"{path}: kernel {name} is not on this path but was launched")
@@ -662,13 +697,14 @@ def batch_kernel_timing(path, det, frames, card) -> dict:
     (torch.profiler, the wrapper's host time left out) beside its bound on
     the same inputs.  Returns name -> (device ms, bound ms, bound by)."""
     args, _ = stage_inputs(frames, det)
+    log_fit_split(path, args)
     table = wrappers()
     out = {}
     for name, a in args.items():
-        kernel = table[name][0]
+        kernel = table[kernel_of(name)][0]
         got = kernel(*a)
-        ms = device_ms(lambda: kernel(*a), reps=5, kernel=CUDA_NAMES[name])
-        b_ms, b_by = bound(*work(name, a, got))
+        ms = device_ms(lambda: kernel(*a), reps=5, kernel=CUDA_NAMES[kernel_of(name)])
+        b_ms, b_by = bound(*work(kernel_of(name), a, got))
         log(f"timing {name} at batch", path=path, card=repr(card), batch=frames.shape[0],
             device_ms=round(ms, 4), bound_ms=round(b_ms, 5), bound_by=b_by,
             share_of_bound=round(b_ms / ms, 3))

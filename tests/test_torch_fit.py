@@ -103,3 +103,62 @@ def test_fused_fit_plain_matches_jax(shape, density, k1, k2, dup_skip):
         # Twin lanes were selected but not fitted: zero centroids.
         skipped = (got[1]["sizes"] > 0) & (got[1]["centroids"] == 0).all(-1)
         assert bool(skipped.any())
+
+
+@pytest.mark.parametrize("k", [1, 12, 31, 160, 300])
+def test_lane_group_covers_each_lane_once(k):
+    """Kernel 6's blocks (x, frame) fit lanes [x * G, (x + 1) * G): every
+    lane once, at most LANE_GROUP_MAX a block, about one block an SM (the
+    fewest blocks where member lists take device scratch)."""
+    for b in (1, 2, 5, 16, 132, 140, 512):
+        for on_chip in (True, False):
+            g = fit.lane_group(k, b, 132, on_chip)
+            assert 1 <= g <= fit.LANE_GROUP_MAX
+            hits = np.zeros(k, np.int32)
+            for x in range(-(-k // g)):  # blockIdx.x
+                hits[x * g : min(k, (x + 1) * g)] += 1
+            assert (hits == 1).all()
+            assert -(-k // g) <= max(1, 132 // b) or g == fit.LANE_GROUP_MAX
+        assert fit.lane_group(k, b, 132, False) == min(k, fit.LANE_GROUP_MAX)
+
+
+@pytest.mark.parametrize("b", [1, 2, 16, 17, 33, 66, 67, 132, 133, 600])
+def test_rank_cluster(b):
+    """Kernel 5's cluster a frame: the largest power of two in [1, 8] whose
+    clusters fit the SMs when the batch does."""
+    c = fit.rank_cluster(b, 132)
+    assert c in (1, 2, 4, 8)
+    assert c * b <= 132 or c == 1
+    assert c == fit.RANK_CLUSTER_MAX or 2 * c * b > 132
+
+
+def test_fit_lanes_plain_matches_jax_on_edited_lanes():
+    """Kernel 6's plain version against fit_lanes_kernel where the lanes
+    are not a top-k: duplicate roots with equal and other sizes, and a used
+    lane whose root no cell holds (corners at cell 0, centroid and
+    fraction 0)."""
+    lab, _ = planes((40, 54), 0.35)
+    k = 32
+    kr = segment.rank_pool_size(k, 40 * 54)
+    roots, sizes = segment.select_lanes(*segment.rank_pool(lab, kr, P.min_component_px)[:2], k)
+    use = sizes >= 0
+    sizes = sizes.clamp(min=0)
+    use[:, 1] = False
+    roots[:, 4], sizes[:, 4] = roots[:, 3], sizes[:, 3]
+    roots[:, 6], sizes[:, 6] = roots[:, 5], sizes[:, 5] + 3
+    roots[:, 9], sizes[:, 9] = roots[:, 0], sizes[:, 0] - 1
+    flat = lab.reshape(lab.shape[0], -1)
+    roots[:, 2] = (flat != torch.arange(40 * 54)).int().argmax(dim=1)
+    sizes[:, 2] = 4
+    use[:, [2, 4, 6, 9]] = True
+    assert not bool((flat == roots[:, 2:3]).any())
+    gq, gc, gf = fit.fit_lanes(lab, roots, sizes, use, DS, P.containment_slack)
+    rq, rc, rf = fit_pallas.fit_lanes_kernel(
+        jnp.asarray(n(lab)), jnp.asarray(n(roots)), jnp.asarray(n(sizes)), jnp.asarray(n(use)),
+        DS, JP.containment_slack, interpret=True,
+    )
+    np.testing.assert_array_equal(n(gf), np.asarray(rf))
+    np.testing.assert_array_equal(n(gc), np.asarray(rc))
+    np.testing.assert_array_equal(n(gq), np.asarray(rq))
+    cell0 = (DS - 1) * 0.5
+    assert (n(gq)[:, 2] == cell0).all() and (n(gc)[:, 2] == 0).all() and (n(gf)[:, 2] == 0).all()

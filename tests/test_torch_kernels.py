@@ -223,9 +223,9 @@ def test_detect_on_card_matches_cpu(kind):
     assert n(torch.as_tensor(got.grey)).shape == img.shape[:2]
 
 
-def _label_planes(shape, density, seed, dev):
+def _label_planes(shape, density, seed, dev, b=2):
     rng = np.random.default_rng(seed)
-    c = torch.from_numpy(rng.random((2,) + shape) < density).to(dev)
+    c = torch.from_numpy(rng.random((b,) + shape) < density).to(dev)
     return c, segment.label_planes(c, P)
 
 
@@ -250,30 +250,79 @@ def _assert_fit_equal(got, ref):
     assert k2.quad_mismatches(got, ref) == 0
 
 
+def _edit_lanes(lab, roots, sizes, use):
+    """Lanes that the top-k never gives but kernel 6 takes: lane 4 repeats
+    lane 3's root and size, lanes 6 and 9 repeat the roots of lanes 5 and 0
+    with other sizes, and lane 2 is a used lane whose root (a cell that is
+    not a root) no cell holds.  Returns the edited lanes."""
+    b, hc, wc = lab.shape
+    flat = lab.reshape(b, -1)
+    not_root = (flat != torch.arange(hc * wc, device=lab.device)).int().argmax(dim=1)
+    roots[:, 4], sizes[:, 4], use[:, 4] = roots[:, 3], sizes[:, 3], use[:, 3]
+    roots[:, 6], sizes[:, 6], use[:, 6] = roots[:, 5], sizes[:, 5] + 3, True
+    roots[:, 9], sizes[:, 9], use[:, 9] = roots[:, 0], (sizes[:, 0] - 1).clamp(min=0), True
+    roots[:, 2], sizes[:, 2], use[:, 2] = not_root.int(), 4, True
+    assert not bool((flat == roots[:, 2:3]).any())
+    return [2, 4, 6, 9]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "shape,k", [((40, 54), 32), ((192, 108), 96), ((108, 192), 160), ((108, 192), 300),
-                ((1080, 1920), 160)]
+    "shape,k,b,edit", [
+        ((40, 54), 32, 2, False), ((192, 108), 96, 2, False), ((108, 192), 160, 2, False),
+        ((108, 192), 300, 2, False), ((1080, 1920), 160, 2, False),
+        ((40, 54), 31, 5, True),  # K not a multiple of the lane group (2 lanes a block)
+        ((40, 54), 32, 1, True),  # one frame: a cluster of 8 blocks, a lane a block
+        ((24, 30), 100, 140, True),  # more frames than SMs: clusters of 1, groups of 64
+        ((108, 192), 160, 16, True),  # dense's batch: clusters of 8, groups of 20
+        ((1080, 1920), 160, 1, True),
+    ]
 )
-def test_rank_and_lane_kernels_match_plain(shape, k):
+def test_rank_and_lane_kernels_match_plain(shape, k, b, edit):
+    """Kernel 5 on clusters of ``rank_cluster(b)`` blocks and kernel 6 on
+    groups of ``lane_group(k, b)`` lanes against their plain versions; with
+    ``edit``, duplicate roots (equal and other sizes) and a used lane with
+    no member cell (its corners all cell 0)."""
     dev = cuda_device()
-    _, (lab, _) = _label_planes(shape, 0.3, 32, dev)
+    _, (lab, _) = _label_planes(shape, 0.3, 32, dev, b)
     kr = segment.rank_pool_size(k, shape[0] * shape[1])
     got = kfit.rank_roots(lab, kr, P.min_component_px)
     ref = segment.rank_pool(lab, kr, P.min_component_px)
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
     roots, sizes = segment.select_lanes(*ref[:2], k)
     use = sizes >= 0
+    sizes = sizes.clamp(min=0)
     use[:, 1] = False  # a hole among the used lanes
-    args = (lab, roots.contiguous(), sizes.clamp(min=0).contiguous(), use.contiguous(), 10,
+    edited = _edit_lanes(lab, roots, sizes, use) if edit else []
+    args = (lab, roots.contiguous(), sizes.contiguous(), use.contiguous(), 10,
             P.containment_slack)
     gq, gc, gf = kfit.fit_lanes(*args)
     rq, rc, rf = segment.fit_lanes(*args)
     assert torch.equal(gf, rf)
     assert (gc - rc).abs().max() <= 1e-3
     assert k2.quad_mismatches({"quads": gq}, {"quads": rq, "centroids": rc, "sizes": args[2]}) == 0
+    assert torch.equal(gq[:, edited], rq[:, edited]) and torch.equal(gc[:, edited], rc[:, edited])
+    assert not bool(gq[:, 1].any() or gc[:, 1].any() or gf[:, 1].any())
     _assert_fit_equal(kfit.fit_quads_batch(lab, 10, P, k), segment.fit_quads(lab, 10, P, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape,b,k", [((40, 54), 3, 32), ((13, 70), 2, 160), ((1080, 1920), 1, 160)])
+def test_rank_kernel_on_each_cluster_size(shape, b, k, c, monkeypatch):
+    """Kernel 5 on clusters of c blocks whatever the batch: bands of fewer
+    rows than blocks, and at c = 1 on 1080x1920 the bands in device
+    scratch."""
+    dev = cuda_device()
+    monkeypatch.setattr(kfit, "rank_cluster", lambda b_, sms: c)
+    _, (lab, _) = _label_planes(shape, 0.3, 34, dev, b)
+    kr = segment.rank_pool_size(k, shape[0] * shape[1])
+    for min_px in (1, 2, 3):
+        got = kfit.rank_roots(lab, kr, min_px)
+        ref = segment.rank_pool(lab, kr, min_px)
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r)
 
 
 @pytest.mark.gpu
@@ -315,9 +364,9 @@ def test_threads_per_block(b, smem, threads):
 
 @pytest.mark.gpu
 def test_kernel_layouts():
-    """Kernels 2, 5 and 7 keep the five paths' grids on chip, and a grid of
-    65,536 cells or more (a 1080p frame at coarse_factor 1) in device
-    scratch sized for it."""
+    """Kernels 2, 5, 6 and 7 keep the five paths' grids on chip, and a grid
+    of 65,536 cells or more (a 1080p frame at coarse_factor 1) in device
+    scratch sized for it (kernel 5: unless a cluster's band fits)."""
     cuda_device()
     kr = segment.rank_pool_size(P.max_candidates, 108 * 192)
     smem, ints = _build.layout("a3_coarse_layout", 108, 192, kr)
@@ -332,8 +381,18 @@ def test_kernel_layouts():
     ):
         smem, ints = _build.layout(name, *args)
         assert smem == 0 and ints > args[0] * args[1]
-    assert _build.layout("a3_rank_layout", 108, 192) == (4 * (109 + 108 * 6), 0)
-    assert _build.layout("a3_rank_layout", 1080, 1920) == (0, 1081 + 1080 * 60)
+    # Kernel 5: header and three pool arrays, then a band's row counts and
+    # admission words where they fit (108 / c rows of 6 words, 1080 / c of 60).
+    pools = 16 + 3 * 1024
+    assert _build.layout("a3_rank_layout", 108, 192, 1024, 8) == (4 * (pools + 15 + 14 * 6), 0)
+    assert _build.layout("a3_rank_layout", 108, 192, 1024, 1) == (4 * (pools + 109 + 108 * 6), 0)
+    assert _build.layout("a3_rank_layout", 1080, 1920, 1024, 8) == (
+        4 * (pools + 136 + 135 * 60), 0)
+    assert _build.layout("a3_rank_layout", 1080, 1920, 1024, 1) == (4 * pools, 1081 + 1080 * 60)
+    # Kernel 6: the staged plane and the member list as uint16 (a plane of
+    # ints a block in device scratch on 1080x1920).
+    assert _build.layout("a3_lanes_layout", 108, 192) == (4 * 108 * 192, 0)
+    assert _build.layout("a3_lanes_layout", 1080, 1920) == (0, 1080 * 1920)
 
 
 @pytest.mark.gpu

@@ -1,20 +1,22 @@
-"""Kernels 2 and 7 cut after each phase: device ms per batch on one card.
+"""Kernels 2, 7 and 6 cut after each phase: device ms per batch on one card.
 
-    cd <checkout> && python <repo>/tools/torch_phase_cuts.py current|parent
+    cd <checkout> && python <repo>/tools/torch_phase_cuts.py current|parent [k2 k7 k6]
 
 Run from the root of a checkout whose kernel sources the anchors below
-name: ``current`` this tree's, ``parent`` those of commit 6b92655 (the
-kernels before their redesign, which the "before" column of PERF.md's
+name: ``current`` this tree's, ``parent`` those of commit 6b92655 (kernels
+2 and 7 before their redesign, which the "before" column of PERF.md's
 breakdown measures).  Each cut is a copy of the checkout's
 ``aruco3_tpu_torch`` under ``build/cuts/`` with a ``return`` put before
-one anchor, in ``csrc/coarse_fit.cu`` (kernel 2) or ``csrc/fit_common.cuh``
-(kernel 7's fit).  All copies build at once, each through its own
-``_build``; then each is timed in a process of its own that imports it:
-the landscape (fit mode), small (labels mode, batch 512) and portrait
-(labels mode) coarse planes of ``chip_smoke.py``'s paths through kernel 2,
-and the portrait and small label planes through kernel 7, by
-``chip_smoke.device_ms``.  The uncut checkout is the last row of each
-table.  An anchor that is not found once fails the run.  Needs the card.
+one anchor, in ``csrc/coarse_fit.cu`` (kernel 2), ``csrc/fit_common.cuh``
+(kernel 7's fit) or ``csrc/fit.cu`` (kernel 6).  All copies build at once,
+each through its own ``_build``; then each is timed in a process of its
+own that imports it: the landscape (fit mode), small (labels mode, batch
+512) and portrait (labels mode) coarse planes of ``chip_smoke.py``'s paths
+through kernel 2, the portrait and small label planes through kernel 7,
+and the dense path's lanes of both label planes (batch 16) through kernel
+6, by ``chip_smoke.device_ms``.  The uncut checkout is the last row of
+each table.  The kernels default to all the tree has cuts for.  An anchor
+that is not found once fails the run.  Needs the card.
 """
 
 import importlib.util
@@ -26,10 +28,10 @@ from pathlib import Path
 
 RET = "if (threadIdx.x >= 0) return;\n"
 TOOL = Path(__file__).resolve()
-# (name, file, anchor): the cut goes before the anchor.
+# kernel -> [(name, file, anchor)]: the cut goes before the anchor.
 CUTS = {
-    "parent": (
-        [
+    "parent": dict(
+        k2=[
             ("outer fill", "coarse_fit.cu",
              "  for (int p = threadIdx.x; p < P; p += blockDim.x) {\n    const int q = qof(p, g);\n    F1[q]"),
             ("+outer CCL", "coarse_fit.cu",
@@ -38,13 +40,13 @@ CUTS = {
             ("+inner depth 0", "coarse_fit.cu", "  uint8_t* NOTLEV = OK;"),
             ("+peel depths", "coarse_fit.cu", "  if (labels_only) return;\n  a3fit::fit_plane(LAB2"),
         ],
-        [
+        k7=[
             ("rank pool", "fit_common.cuh", "  topk_pick(s.roots_r"),
             ("+top-k", "fit_common.cuh", "  if (threadIdx.x == 0) *o.qual = n_roots;"),
         ],
     ),
-    "current": (
-        [
+    "current": dict(
+        k2=[
             ("outer fill", "coarse_fit.cu",
              "  each_word(g, [&](int q, int, int) { F1[q] = M2[q] | (WHITE[q] & ~R[q]); });"),
             ("+outer CCL", "coarse_fit.cu", "  if (labels_only) {\n    int* L1"),
@@ -53,11 +55,16 @@ CUTS = {
             ("+peel depths", "coarse_fit.cu",
              "  if (labels_only) return;\n  // The inner plane back on chip"),
         ],
-        [
+        k7=[
             ("rank pool", "fit_common.cuh", "  topk_select(s.sizes_r, kr, k, s.sel, s.topk);"),
             ("+top-k", "fit_common.cuh", "  if (threadIdx.x == 0) *o.qual = n_roots;"),
-            ("+members", "fit_common.cuh",
-             "  const WarpRed red{};\n  for (int l = warp; l < k; l += nwarps) {"),
+            ("+members", "fit_common.cuh", "  for (int l = warp; l < k; l += nwarps) {"),
+        ],
+        k6=[
+            ("setup, staged plane", "fit.cu", "  // Members of each root, counted, then listed root after root."),
+            ("+member counts", "fit.cu",
+             "  if (warp == 0) {\n    for (int i = lane; i < g; i += 32) off[i] = cnt[i];"),
+            ("+member lists", "fit.cu", "  // A warp a lane: its root's members, its own size."),
         ],
     ),
 }
@@ -71,9 +78,9 @@ def smoke():
     return mod
 
 
-def time_variant(kernel: str, name: str) -> None:
+def time_variant(kernels: str, name: str) -> None:
     """In a process of its own, from the root of a (cut) copy: device ms per
-    batch of kernel 2 ("k2"), kernel 7 ("k7") or both ("all")."""
+    batch of the comma-separated kernels ("k2", "k7", "k6")."""
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -85,6 +92,26 @@ def time_variant(kernel: str, name: str) -> None:
 
     cs = smoke()
     paths, _ = cs.path_inputs()
+    kernels = kernels.split(",")
+    if "k6" in kernels:  # the dense path's label planes and lanes, as detect_batch makes them
+        det, frames = paths["dense"]
+        params, _, _, ds = det.geometry(*frames.shape[1:])
+        big = torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(frames[0], (cs.BATCHES["dense"],) + frames.shape[1:]))).cuda()
+        c = k1.threshold_open_pool(big, det.config.threshold_window, params.open_radius, ds)[0]
+        del big
+        planes = k2.coarse_labels(c, params)
+        for plane, lab, k in (("outer", planes[0], params.max_candidates),
+                              ("inner", planes[1], params.max_inner_candidates)):
+            kr = segment.rank_pool_size(k, lab.shape[1] * lab.shape[2])
+            roots, sizes = segment.select_lanes(*kfit.rank_roots(lab, kr, params.min_component_px)[:2], k)
+            a = (lab, roots.contiguous(), sizes.clamp(min=0).contiguous(),
+                 (sizes >= 0).contiguous(), ds, params.containment_slack)
+            ms = cs.device_ms(lambda: kfit.fit_lanes(*a), reps=5, kernel="fit_lanes_kernel")
+            print(f"k6 cut dense {plane} batch {lab.shape[0]} lanes {k} {name}: device_ms {ms:.4f}",
+                  flush=True)
+    if not {"k2", "k7"} & set(kernels):
+        return
     P = segment.QuadParams()
     coarse = {}
     for path, ds in (("landscape", 10), ("small", 1), ("portrait", 10)):
@@ -93,13 +120,13 @@ def time_variant(kernel: str, name: str) -> None:
             np.broadcast_to(frames[0], (cs.BATCHES[path],) + frames.shape[1:]))).cuda()
         coarse[path] = (k1.threshold_open_pool(g, 7, 2, ds)[0], ds)
         del g
-    if kernel in ("k2", "all"):
+    if "k2" in kernels:
         for path, mode in (("landscape", "fit"), ("small", "labels"), ("portrait", "labels")):
             c, ds = coarse[path]
             call = (lambda: k2.coarse_fit(c, P, ds)) if mode == "fit" else (lambda: k2.coarse_labels(c, P))
             ms = cs.device_ms(call, reps=5)
             print(f"k2 cut {path} {mode} batch {c.shape[0]} {name}: device_ms {ms:.4f}", flush=True)
-    if kernel in ("k7", "all"):
+    if "k7" in kernels:
         for path in ("portrait", "small"):
             c, ds = coarse[path]
             l1, l2 = k2.coarse_labels(c, P)
@@ -108,13 +135,13 @@ def time_variant(kernel: str, name: str) -> None:
             print(f"k7 cut {path} batch {c.shape[0]} {name}: device_ms {ms:.4f}", flush=True)
 
 
-def main(which: str) -> None:
-    k2_cuts, k7_cuts = CUTS[which]
+def main(which: str, kernels: list[str]) -> None:
+    kernels = kernels or list(CUTS[which])
     root = Path("build/cuts")
     shutil.rmtree(root, ignore_errors=True)
     variants = []  # (directory, kernel, name)
-    for kernel, table in (("k2", k2_cuts), ("k7", k7_cuts)):
-        for i, (name, fname, anchor) in enumerate(table):
+    for kernel in kernels:
+        for i, (name, fname, anchor) in enumerate(CUTS[which][kernel]):
             d = root / f"{kernel}_{i}"
             shutil.copytree("aruco3_tpu_torch", d / "aruco3_tpu_torch",
                             ignore=shutil.ignore_patterns("__pycache__"))
@@ -123,7 +150,7 @@ def main(which: str) -> None:
             assert text.count(anchor) == 1, (which, name, anchor)
             src.write_text(text.replace(anchor, RET + anchor))
             variants.append((d, kernel, name))
-    variants.append((Path("."), "all", "all"))
+    variants.append((Path("."), ",".join(kernels), "all"))
     build = [sys.executable, "-c", "from aruco3_tpu_torch.ops import _build; _build.build()"]
     procs = [subprocess.Popen(build, cwd=d) for d, _, _ in variants]
     assert all(p.wait() == 0 for p in procs), "a cut did not build"
@@ -136,4 +163,4 @@ if __name__ == "__main__":
     if sys.argv[1] == "--time":
         time_variant(sys.argv[2], sys.argv[3])
     else:
-        main(sys.argv[1])
+        main(sys.argv[1], sys.argv[2:])
