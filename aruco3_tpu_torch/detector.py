@@ -278,7 +278,7 @@ def detect_batch_arrays(
             grey,
             near,
             quads.contiguous(),
-            cand["centroids"],
+            cand["centroids"].contiguous(),
             inner_coarse,
             cand["is_inner"].contiguous(),
             cand["valid"].contiguous(),

@@ -57,7 +57,7 @@ SIGNATURES = {
     "a3_fused_layout": [_INT] * 3 + [_PTR],
     "a3_fused_fit": [_PTR] * 15 + [_INT] * 8 + [_FLT, _FLT] + [_INT] * 3 + [_LL, _PTR],
     "a3_refine": [_PTR] * 8 + [_INT] * 8 + [_PTR],
-    "a3_warp_decode": [_PTR] * 12 + [_INT] * 6 + [_PTR],
+    "a3_warp_decode": [_PTR] * 3 + [_INT] + [_PTR] * 9 + [_INT] * 7 + [_PTR],
     "a3_warp_eval": [_PTR] * 4 + [_INT] * 3 + [_PTR],
 }
 
@@ -156,7 +156,11 @@ def layout(name: str, *args: int) -> tuple[int, int]:
 
 
 def check(err: int, name: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a launcher."""
+    """Raise on a non-zero cudaError_t returned by a launcher: ValueError
+    for cudaErrorInvalidValue (arguments the launcher refuses), else
+    RuntimeError."""
+    if err == 1:
+        raise ValueError(f"{name}: arguments outside what the kernel takes")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 

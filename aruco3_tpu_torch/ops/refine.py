@@ -4,6 +4,9 @@
 ``plain`` on CPU tensors.  Both return refined (B, K, 4, 2) float32
 corners: valid lanes snapped to the extreme ink pixel of each corner's
 window (``segment.refine_windows``), invalid lanes unchanged.
+
+The kernel runs a warp per corner window and computes the corner
+directions itself.
 """
 
 from __future__ import annotations
@@ -45,13 +48,12 @@ def refine_corners(
     b, h, w = grey.shape
     k = quads.shape[1]
     hc, wc = inner_coarse.shape[1:]
-    dirs = segment.corner_dirs(quads, centroids).contiguous()
     out = torch.empty((b, k, 4, 2), dtype=torch.float32, device=grey.device)
     err = _build.lib().a3_refine(
         _build.checked_ptr(grey, torch.uint8, (b, h, w), "grey"),
         _build.checked_ptr(near, torch.bool, (b, h, w), "near"),
         _build.checked_ptr(quads, torch.float32, (b, k, 4, 2), "quads"),
-        _build.checked_ptr(dirs, torch.float32, (b, k, 4, 2), "dirs"),
+        _build.checked_ptr(centroids, torch.float32, (b, k, 2), "centroids"),
         _build.checked_ptr(inner_coarse, torch.bool, (b, hc, wc), "inner_coarse"),
         _build.checked_ptr(is_inner, torch.bool, (b, k), "is_inner"),
         _build.checked_ptr(valid, torch.bool, (b, k), "valid"),

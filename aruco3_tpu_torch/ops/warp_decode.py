@@ -7,17 +7,54 @@
 * levels (B, K) int32 — the Otsu level of each patch;
 * grids (B, K, m*m) bool — the white-cell grid after Triangle resize.
 
-Invalid lanes come back as zeros.
+Invalid lanes come back as zeros.  The launch takes the level pointers
+by value and the resize table (``resize_taps``) from a device buffer
+built once per (S, m, device): the wrapper copies nothing to the device
+per call and never waits on it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from .. import rectify
 from . import Counter, _build
 
 count = Counter()
+
+
+@functools.lru_cache(maxsize=None)
+def resize_taps(s: int, m: int):
+    """Rows of ``rectify.triangle_resize_matrix(s, m)`` as runs of taps:
+    (start (m,) int32, count (m,) int32, weights (m, T) float32), row o's
+    nonzero weights at columns start[o] .. start[o] + count[o] - 1 in
+    weights[o, :count[o]], T the longest run (each row's nonzero taps are
+    one run)."""
+    L = rectify.triangle_resize_matrix(s, m)
+    runs = []
+    for row in L:
+        nz = np.nonzero(row)[0]
+        runs.append((int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0))
+    T = max(1, max(hi - lo for lo, hi in runs))
+    start = np.array([lo for lo, _ in runs], np.int32)
+    cnt = np.array([hi - lo for lo, hi in runs], np.int32)
+    w = np.zeros((m, T), np.float32)
+    for o, (lo, hi) in enumerate(runs):
+        w[o, : hi - lo] = L[o, lo:hi]
+    return start, cnt, w
+
+
+@functools.lru_cache(maxsize=None)
+def device_taps(s: int, m: int, device: torch.device) -> torch.Tensor:
+    """``resize_taps(s, m)`` as the kernel reads it, one int32 buffer on
+    ``device``: start, count, then the weights' float32 bits."""
+    start, cnt, w = resize_taps(s, m)
+    words = np.concatenate([start, cnt, w.view(np.int32).ravel()])
+    return torch.from_numpy(words).to(device)
 
 
 def plain(grey, uppers, H, lvl, tlx, tly, valid, patch_size, mark_size):
@@ -55,32 +92,34 @@ def warp_decode(
     k = lvl.shape[1]
     s, m = patch_size, mark_size
     dev = grey.device
+    ptrs = (ctypes.c_longlong * max(1, len(uppers)))()
+    dims = (ctypes.c_int * max(2, 2 * len(uppers)))()
     for i, u in enumerate(uppers):
-        _build.checked_ptr(u, torch.float32, name=f"level {i + 1}")
-        if u.shape[0] != b:
-            raise ValueError(f"level {i + 1}: batch {u.shape[0]} != {b}")
-    level_ptrs = torch.tensor([u.data_ptr() for u in uppers], dtype=torch.int64, device=dev)
-    level_dims = torch.tensor(
-        [list(u.shape[1:]) for u in uppers], dtype=torch.int32, device=dev
-    ).reshape(-1)
-    lmat = torch.from_numpy(rectify.triangle_resize_matrix(s, m)).to(dev)
+        if not (u.is_cuda and u.dtype == torch.float32 and u.is_contiguous()
+                and u.dim() == 3 and u.shape[0] == b):
+            raise ValueError(f"level {i + 1}: expected a contiguous float32 CUDA tensor "
+                             f"(B={b}, h, w), got {u.dtype} {tuple(u.shape)} on {u.device}")
+        ptrs[i] = u.data_ptr()
+        dims[2 * i], dims[2 * i + 1] = u.shape[1], u.shape[2]
+    taps = device_taps(s, m, dev)
     samples = torch.empty((b, k, s, s), dtype=torch.float32, device=dev)
     levels = torch.empty((b, k), dtype=torch.int32, device=dev)
     grids = torch.empty((b, k, m * m), dtype=torch.bool, device=dev)
     err = _build.lib().a3_warp_decode(
         _build.checked_ptr(grey, torch.uint8, name="grey"),
-        level_ptrs.data_ptr(),
-        level_dims.data_ptr(),
+        ptrs,
+        dims,
+        len(uppers),
         _build.checked_ptr(H, torch.float32, (b, k, 3, 3), "H"),
         _build.checked_ptr(lvl, torch.int32, (b, k), "lvl"),
         _build.checked_ptr(tlx, torch.int32, (b, k), "tlx"),
         _build.checked_ptr(tly, torch.int32, (b, k), "tly"),
         _build.checked_ptr(valid, torch.bool, (b, k), "valid"),
-        lmat.data_ptr(),
+        taps.data_ptr(),
         samples.data_ptr(),
         levels.data_ptr(),
         grids.data_ptr(),
-        b * k, k, h, w, s, m,
+        b * k, k, h, w, s, m, resize_taps(s, m)[2].shape[1],
         _build.stream(),
     )
     _build.check(err, "a3_warp_decode")

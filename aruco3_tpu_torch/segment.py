@@ -561,13 +561,17 @@ def refine_windows(
     rows = tly[..., None, None] + o[:, None]  # (B, K, 4, wn, 1)
     cols = tlx[..., None, None] + o[None, :]  # (B, K, 4, 1, wn)
     rows, cols = torch.broadcast_tensors(rows, cols)
+    # A frame smaller than the window: its pixels past the image are
+    # neither summed nor ink (the mean still divides by wn * wn).
+    inside = (rows < h) & (cols < w)
+    rows, cols = rows.clamp(max=h - 1), cols.clamp(max=w - 1)
     flat_idx = (rows * w + cols).reshape(bsz, -1)
     shape = rows.shape
 
     def take(plane):
         return plane.reshape(bsz, -1).gather(1, flat_idx).reshape(shape)
 
-    nearw = take(near)
+    nearw = take(near) & inside
     if inner_coarse is not None:
         wcc = inner_coarse.shape[-1]
         cidx = ((rows // ds) * wcc + cols // ds).reshape(bsz, -1)
@@ -575,7 +579,7 @@ def refine_windows(
         inner_bit = nearw & up
         nearw = torch.where(is_inner[..., None, None, None], inner_bit, nearw)
     if grey is not None:
-        g = take(grey).to(torch.float32)
+        g = torch.where(inside, take(grey).to(torch.float32), 0.0)
         mean = g.sum(dim=(-2, -1)) / float(wn * wn)
         ink = (g < mean[..., None, None]) & nearw
     else:

@@ -50,8 +50,9 @@ Phases, each printing lines of numbers:
    by kernel (``torch.profiler``) beside it; each kernel of the path alone
    on that batch (device time, profiler) beside its bound there; each
    kernel against its plain version at its path's phase-3 shapes (CUDA
-   events after warm-up, and the kernel's device time alone), on
-   the portrait coarse planes at batch 128 the fused kernel 2 against
+   events after warm-up, and the kernel's device time alone; kernels 3
+   and 4 on each of the three refine paths), on the portrait coarse
+   planes at batch 128 the fused kernel 2 against
    labels mode + kernel 7, and on the noref quads at batch 128 kernel 8
    against ``grid_sample`` and the tail route's warp + decode against
    kernel 4's.
@@ -324,7 +325,7 @@ def stage_inputs(frames, det):
                       "valid": valid & h_valid, "bad": bad.reshape(-1, s * s),
                       "mark": det.dictionary.get_mark_size()}
     args["refine"] = (
-        frames, near, cand["quads"].contiguous(), cand["centroids"], ic,
+        frames, near, cand["quads"].contiguous(), cand["centroids"].contiguous(), ic,
         cand["is_inner"].contiguous(), cand["valid"].contiguous(), ds, wn,
     )
     quads = refine.refine_corners(*args["refine"])
@@ -668,7 +669,9 @@ def tail_timing(det, frames, card, small_args) -> None:
 
 def profile_path(path, det, frames, ms_per_batch, reps=3) -> None:
     """Device time per batch by kernel (torch.profiler over ``reps``
-    batches after warm-up) against the CUDA-event time per batch."""
+    batches after warm-up) against the CUDA-event time per batch, and the
+    batch's host-to-device copies (each one a CUDA graph cannot capture
+    from pageable memory)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -678,12 +681,14 @@ def profile_path(path, det, frames, ms_per_batch, reps=3) -> None:
         for _ in range(reps):
             detect_and_pose(det, frames)
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    avg = prof.key_averages()
+    dev = [e for e in avg if str(e.device_type).endswith("CUDA")]
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / reps
     log("profile", path=path, batch=frames.shape[0], device_ms_per_batch=round(device_ms, 3),
         ms_per_batch=round(ms_per_batch, 3),
         device_idle_share=round(1.0 - device_ms / ms_per_batch, 3),
-        device_ops_per_batch=round(sum(e.count for e in dev) / reps, 1))
+        device_ops_per_batch=round(sum(e.count for e in dev) / reps, 1),
+        htod_copies_per_batch=sum(e.count for e in avg if "HtoD" in e.key) / reps)
     by_name = {}
     for e in dev:  # names cut to 60 characters; templated ones share a prefix
         by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + e.self_device_time_total / 1e3 / reps
@@ -732,6 +737,38 @@ def route_timing(det, frames, card) -> None:
         grid=f"{coarse.shape[1]}x{coarse.shape[2]}", fused_kernel2_ms=round(fused_ms, 4),
         coarse_labels_ms=round(labels_ms, 4), fused_fit_ms=round(fit_ms, 4),
         label_route_ms=round(route_ms, 4))
+
+
+def kernel_timing(name, path, fns, a, checked, batch, launches, card) -> dict:
+    """Phase 5 for one kernel at its path's phase-3 arguments ``a``: CUDA
+    events per call over 10 calls (the wrapper's host time included), device time
+    alone, the plain version's time and the library call's where there is
+    one, beside the bound (``checked``: phase 3's error, bytes and
+    operations) and the kernel alone at the phase-5 batch (``batch``).
+    Logs them and returns the kernel's row of the JSON line."""
+    kernel, plain = fns
+    k_ms = cuda_ms(lambda: kernel(*a), reps=10)
+    dev_ms = device_ms(lambda: kernel(*a), reps=10, kernel=CUDA_NAMES[name])
+    p_ms = cuda_ms(lambda: plain(*a), reps=2)
+    err, bytes_, ops = checked
+    b_ms, b_by = bound(bytes_, ops)
+    lib_ms = None
+    if name == "warp_eval":
+        grid = sample_grid(a[1], a[2])
+        lib_ms = cuda_ms(lambda: grid_sample_eval(a[0], grid), reps=10)
+    batch_ms, batch_bound_ms, batch_bound_by = batch
+    log(f"timing {name}", path=path, card=repr(card), batch=int(a[0].shape[0]), kernel_ms=round(k_ms, 4),
+        device_ms=round(dev_ms, 4), plain_ms=round(p_ms, 4), bound_ms=round(b_ms, 5),
+        bound_by=b_by, bytes=bytes_, ops=ops,
+        library_ms=lib_ms if lib_ms is None else round(lib_ms, 4),
+        phase5_batch=BATCHES[path], batch_device_ms=round(batch_ms, 4),
+        batch_bound_ms=round(batch_bound_ms, 5))
+    return {"name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "path": path, "device_ms": dev_ms,
+            "batch": BATCHES[path], "batch_device_ms": batch_ms,
+            "batch_bound_ms": batch_bound_ms, "batch_bound_by": batch_bound_by}
 
 
 def path_inputs():
@@ -865,32 +902,14 @@ def main() -> int:
         del big
 
     table = wrappers()
-    rows = []
-    for name, (source, replaces, path) in KERNELS.items():
-        kernel, plain = table[name]
-        a = args_of[path][name]
-        k_ms = cuda_ms(lambda: kernel(*a), reps=10)
-        dev_ms = device_ms(lambda: kernel(*a), reps=10, kernel=CUDA_NAMES[name])
-        p_ms = cuda_ms(lambda: plain(*a), reps=2)
-        err, bytes_, ops = phase3[path][name]
-        b_ms, b_by = bound(bytes_, ops)
-        lib_ms = None
-        if name == "warp_eval":
-            grid = sample_grid(a[1], a[2])
-            lib_ms = cuda_ms(lambda: grid_sample_eval(a[0], grid), reps=10)
-        batch_ms, batch_bound_ms, batch_bound_by = at_batch[path][name]
-        log(f"timing {name}", path=path, card=repr(card), batch=int(a[0].shape[0]), kernel_ms=round(k_ms, 4),
-            device_ms=round(dev_ms, 4), plain_ms=round(p_ms, 4), bound_ms=round(b_ms, 5),
-            bound_by=b_by, bytes=bytes_, ops=ops,
-            library_ms=lib_ms if lib_ms is None else round(lib_ms, 4),
-            phase5_batch=BATCHES[path], batch_device_ms=round(batch_ms, 4),
-            batch_bound_ms=round(batch_bound_ms, 5))
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches_of[path][name], "max_abs_err": err,
-                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms, "path": path, "device_ms": dev_ms,
-                     "batch": BATCHES[path], "batch_device_ms": batch_ms,
-                     "batch_bound_ms": batch_bound_ms, "batch_bound_by": batch_bound_by})
+    rows = [kernel_timing(name, path, table[name], args_of[path][name], phase3[path][name],
+                          at_batch[path][name], launches_of[path][name], card)
+            for name, (_, _, path) in KERNELS.items()]
+    # Kernels 3 and 4 on the other refine paths (their rows report landscape).
+    for path in ("portrait", "dense"):
+        for name in ("refine", "warp_decode"):
+            kernel_timing(name, path, table[name], args_of[path][name], phase3[path][name],
+                          at_batch[path][name], launches_of[path][name], card)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -194,6 +194,171 @@ def test_warp_decode_kernel_matches_plain(shape):
     assert torch.equal(gl, rl) and torch.equal(gg, rg)
 
 
+def _refine_case(rng, b, k, h, w, ds, dev, all_invalid=False):
+    """Kernel 3's inputs: corners anywhere in the frame, on and past each
+    border; lane 0 with exact score ties (corner 0 straight above or below
+    its centroid, corner 1 level with it); inner lanes on a random
+    footprint; some invalid lanes (all, with ``all_invalid``)."""
+    grey = torch.from_numpy(noisy_blocks(rng, b, max(h, 9), max(w, 9))[:, :h, :w].copy())
+    near = torch.from_numpy(rng.random((b, h, w)) < 0.6)
+    q = np.stack([rng.uniform(-4, w + 3, (b, k, 4)), rng.uniform(-4, h + 3, (b, k, 4))], -1)
+    edge = rng.random((b, k, 4)) < 0.3
+    q[..., 0] = np.where(edge, rng.choice([0.0, 1.0, w - 2.0, w - 1.0, -0.5, w - 0.5], (b, k, 4)),
+                         q[..., 0])
+    q[..., 1] = np.where(rng.random((b, k, 4)) < 0.3,
+                         rng.choice([0.0, 1.0, h - 2.0, h - 1.0, -0.5, h - 0.5], (b, k, 4)),
+                         q[..., 1])
+    cen = np.stack([rng.uniform(0, w, (b, k)), rng.uniform(0, h, (b, k))], -1)
+    cen[:, 0, 0] = q[:, 0, 0, 0]
+    cen[:, 0, 1] = q[:, 0, 1, 1]
+    hc, wc = -(-h // ds), -(-w // ds)
+    valid = np.zeros((b, k), bool) if all_invalid else rng.random((b, k)) < 0.8
+    args = (grey, near, torch.from_numpy(q.astype(np.float32)),
+            torch.from_numpy(cen.astype(np.float32)),
+            torch.from_numpy(rng.random((b, hc, wc)) < 0.7),
+            torch.from_numpy(rng.random((b, k)) < 0.4), torch.from_numpy(valid))
+    return tuple(a.to(dev) for a in args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,ds,wn,b,k,all_invalid", [
+    (240, 320, 20, 48, 2, 13, False),  # dense's ds and window
+    (240, 320, 10, 64, 2, 13, False),  # the largest window
+    (240, 320, 10, 28, 3, 7, False),  # landscape's window
+    (97, 203, 2, 12, 2, 9, False),
+    (120, 160, 7, 33, 2, 5, False),  # two rows a thread, three chunks a row
+    (40, 30, 20, 48, 2, 5, False),  # a frame smaller than the window
+    (30, 200, 10, 48, 2, 5, False),  # fewer rows than the window
+    (200, 40, 20, 50, 2, 5, False),  # fewer columns than the window
+    (240, 320, 20, 48, 2, 13, True),  # every lane invalid
+    (240, 320, 10, 28, 300, 7, False),  # more windows than the grid's warps
+    (240, 320, 20, 100, 2, 13, False),  # wider than 64: two strips
+    (240, 320, 40, 130, 2, 9, False),  # three strips, a clamp box across two
+    (90, 70, 10, 65, 2, 5, False),  # wider than 64, the frame smaller
+])
+def test_refine_kernel_windows_match_plain(h, w, ds, wn, b, k, all_invalid):
+    """Kernel 3 against its plain version on synthetic corners, each of its
+    window shapes (1 or 2 rows a thread, 2 to 5 chunks a row, strips of 64
+    columns above 64), windows
+    clipped at every border, frames smaller than the window, exact score
+    ties and lanes with no valid corner."""
+    dev = cuda_device()
+    args = _refine_case(np.random.default_rng(h * w + wn), b, k, h, w, ds, dev, all_invalid)
+    got = k3.refine_corners(*args, ds, wn)
+    ref = k3.plain(*args, ds, wn)
+    assert torch.equal(got, ref)
+    if all_invalid:
+        assert torch.equal(got, args[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dark", "nested"])
+def test_refine_kernel_without_inner_lanes(kind):
+    """``max_inner_candidates=0``: no inner lanes, an empty footprint."""
+    dev = cuda_device()
+    params = segment.QuadParams(max_inner_candidates=0)
+    img = torch.from_numpy(make_scene(kind)[0][None]).to(dev)
+    coarse, near, _ = k1.threshold_open_pool(img, 7, 2, 2)
+    f1, f2, ic = k2.coarse_fit(coarse, params, 2)
+    cand = segment.merge_fits(f1, f2, params, 2)
+    assert not bool(cand["is_inner"].any())
+    args = (img, near, cand["quads"].contiguous(), cand["centroids"], ic,
+            cand["is_inner"].contiguous(), cand["valid"].contiguous(), 2,
+            segment.refine_window_size(params, 2))
+    assert torch.equal(k3.refine_corners(*args), k3.plain(*args))
+
+
+def _warp_case(rng, h, w, b, k, dev, s=S):
+    """Kernel 4's inputs on (h, w) frames: quads of sizes that take pyramid
+    levels 0, 1 and 2 or more; in frame 0, lane 1 a degenerate homography
+    (a repeated corner), lane 2 a homography whose w is 0 everywhere
+    (constant zero samples: every Otsu score -1), lane 3 the identity onto
+    a two-valued checkerboard (samples 0 and 255 only)."""
+    grey = noisy_blocks(rng, b, h, w)
+    grey[0, 8:72, 8:72] = np.where((np.add.outer(np.arange(64) // 5, np.arange(64) // 7)) % 2, 255, 0)
+    grey = torch.from_numpy(grey).to(dev)
+    sizes = [(10, 40), (70, 110), (130, min(h, w) * 0.8)]
+    quads = torch.from_numpy(np.stack([
+        np.concatenate([random_quads(rng, -(-k // 3), lo, hi, h, w) for lo, hi in sizes])[:k]
+        for _ in range(b)])).to(dev)
+    quads[0, 1] = quads[0, 1, [0, 0, 2, 3]]
+    H, hv = rectify.homography_square_to_quad(quads, s)
+    shapes = rectify.pyramid_level_shapes(h, w, rectify.num_levels(h, w))
+    uppers = rectify.upper_levels(rectify.level1_plane(grey), shapes)
+    lvl, tlx, tly = rectify.warp_windows(quads, shapes)
+    H[0, 2] = torch.tensor([[1.0, 0, 0], [0, 1, 0], [0, 0, 0]])
+    H[0, 3] = torch.tensor([[1.0, 0, 12], [0, 1, 10], [0, 0, 1]])
+    lvl[0, 2:4] = 0
+    tlx[0, 3] = tly[0, 3] = 8
+    valid = hv.clone()
+    valid[0, 2:4] = True
+    valid[-1, -3:] = False
+    return grey, uppers, H.contiguous(), lvl, tlx, tly, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,s", [(6, S), (7, S), (8, S), (10, S), (8, 64), (6, 128), (40, 96),
+                                 (8, 240)])
+@pytest.mark.parametrize("shape,b,k", [((480, 640), 2, 13), ((1080, 1920), 1, 31)])
+def test_warp_decode_kernel_levels_and_patches(shape, b, k, m, s):
+    """Kernel 4 against its plain version: lanes on levels 0, 1 and 2 or
+    more in one batch, a degenerate homography, a constant and a
+    two-valued patch, each of the dictionaries' mark sizes, the largest
+    patch held in registers (16 samples a thread), larger patches (read
+    back from the output; more than 32 taps an output; more than 32
+    outputs; above 48 KB of shared memory), lane counts of no round
+    size."""
+    dev = cuda_device()
+    args = _warp_case(np.random.default_rng(m), *shape, b, k, dev, s)
+    lvl, valid = args[3], args[6]
+    assert bool((lvl[valid] == 0).any() and (lvl[valid] == 1).any() and (lvl[valid] >= 2).any())
+    gs, gl, gg = k4.warp_decode(*args, s, m)
+    rs, rl, rg = k4.plain(*args, s, m)
+    assert torch.equal(gl, rl) and torch.equal(gg, rg)
+    assert (gs - rs).abs().max() <= 1e-3
+    assert not bool(gs[0, 2].any()) and int(gl[0, 2]) == 0
+    assert set(gs[0, 3].unique().tolist()) == {0.0, 255.0}
+
+
+@pytest.mark.parametrize("s,m", [(S, 6), (S, 7), (S, 8), (S, 10), (128, 6), (96, 40)])
+def test_resize_taps_reproduce_matrix(s, m):
+    """Kernel 4's tap table holds ``rectify.triangle_resize_matrix(s, m)``
+    exactly, each row as one run of taps (more than 32 at 128 -> 6), and
+    its device words are the start, the count and the weights' bits."""
+    start, cnt, wts = k4.resize_taps(s, m)
+    dense = np.zeros((m, s), np.float32)
+    for o in range(m):
+        assert 0 < cnt[o] <= wts.shape[1]
+        dense[o, start[o] : start[o] + cnt[o]] = wts[o, : cnt[o]]
+        assert not wts[o, cnt[o] :].any()
+    assert np.array_equal(dense, rectify.triangle_resize_matrix(s, m))
+    words = k4.device_taps(s, m, torch.device("cpu")).numpy()
+    assert np.array_equal(words[:m], start) and np.array_equal(words[m : 2 * m], cnt)
+    assert np.array_equal(words[2 * m :].view(np.float32).reshape(m, -1), wts)
+
+
+@pytest.mark.parametrize("m", [6, 7, 8, 10])
+def test_resize_through_taps_matches_plain(m):
+    """A resize summing each output's run of taps in ascending order (first
+    term, then acc + term; rows, then columns), as kernel 4 does, equals
+    ``rectify.resize_triangle`` bit for bit on binarized patches."""
+    rng = np.random.default_rng(m)
+    patches = torch.from_numpy(np.where(rng.random((6, S, S)) < 0.5, 255.0, 0.0).astype(np.float32))
+    start, cnt, wts = k4.resize_taps(S, m)
+
+    def contract(x, axis):
+        outs = []
+        for o in range(m):
+            acc = x.select(axis, int(start[o])) * float(wts[o, 0])
+            for j in range(1, cnt[o]):
+                acc = acc + x.select(axis, int(start[o] + j)) * float(wts[o, j])
+            outs.append(acc)
+        return torch.stack(outs, dim=axis)
+
+    got = contract(contract(patches, 1), 2)
+    assert torch.equal(got, rectify.resize_triangle(patches, m))
+
+
 @pytest.mark.gpu
 def test_kernels_reject_bad_inputs():
     dev = cuda_device()
@@ -203,6 +368,18 @@ def test_kernels_reject_bad_inputs():
     with pytest.raises(ValueError):
         k2.coarse_fit(torch.zeros((1, 8, 8), dtype=torch.bool, device=dev),
                       segment.QuadParams(max_candidates=200), 2)
+    # Kernel 3: an empty window, centroids of another shape.
+    args = _refine_case(np.random.default_rng(5), 1, 3, 64, 64, 10, dev)
+    with pytest.raises(ValueError):
+        k3.refine_corners(*args, 10, 0)
+    with pytest.raises(ValueError):
+        k3.refine_corners(args[0], args[1], args[2], args[3][..., :1].contiguous(), *args[4:], 10, 28)
+    # Kernel 4: more pyramid levels than a frame can have, a patch whose
+    # resize does not fit an SM's shared memory, a level of another type.
+    grey, uppers, *rest = _warp_case(np.random.default_rng(6), 240, 320, 1, 5, dev)
+    for levels, s in ((uppers * 11, S), (uppers, 1024), ([u.double() for u in uppers], S)):
+        with pytest.raises(ValueError):
+            k4.warp_decode(grey, levels, *rest, s, 8)
 
 
 @pytest.mark.gpu

@@ -171,3 +171,31 @@ def test_finalize_quads_matches_jax():
     np.testing.assert_array_equal(n(got[1][0]), np.asarray(ref[1]))
     for key, val in ref[2].items():
         assert int(got[2][key][0]) == int(val), key
+
+
+def test_refine_plain_matches_pallas_on_a_frame_smaller_than_the_window():
+    """On a 40x30 frame at a 48-px window (ds 20), kernel 3's plain version
+    gives the corners of the JAX refine kernel (``refine_corners_batch``,
+    interpreted), which zero-pads the frame: pixels past the image count 0
+    in the window mean and are never ink."""
+    from aruco3_tpu.ops.refine_pallas import refine_corners_batch
+
+    rng = np.random.default_rng(48)
+    b, k, h, w, ds, wn = 1, 6, 30, 40, 20, 48
+    grey = rng.integers(0, 256, (b, h, w), dtype=np.uint8)
+    near = rng.random((b, h, w)) < 0.6
+    ic = rng.random((b, -(-h // ds), -(-w // ds))) < 0.6
+    quads = np.stack([rng.uniform(-2, w + 1, (b, k, 4)), rng.uniform(-2, h + 1, (b, k, 4))],
+                     -1).astype(np.float32)
+    cents = np.stack([rng.uniform(0, w, (b, k)), rng.uniform(0, h, (b, k))], -1).astype(np.float32)
+    is_inner = rng.random((b, k)) < 0.5
+    valid = np.ones((b, k), bool)
+    up = ic.repeat(ds, 1).repeat(ds, 2)[:, :h, :w]
+    packed = grey.astype(np.int32) | near.astype(np.int32) << 8 | up.astype(np.int32) << 9
+    ref = refine_corners_batch(
+        jnp.asarray(packed), jnp.asarray(quads), jnp.asarray(cents), jnp.asarray(is_inner),
+        ds, wn, inner_coarse=jnp.asarray(ic), valid=jnp.asarray(valid), interpret=True,
+    )
+    got = k3.plain(t(grey), t(near), t(quads), t(cents), t(ic), t(is_inner), t(valid), ds, wn)
+    assert (n(got) != quads).any()  # some corners moved
+    np.testing.assert_array_equal(n(got), np.asarray(ref))
