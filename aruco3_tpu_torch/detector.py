@@ -35,6 +35,13 @@ Tail route (no refinement, or ds == 1; the JAX ``_detect_tail``):
    ``warp_impl="gather"``; Otsu, Triangle resize and cell grid (torch);
    grid tail and dictionary match
 
+Masks route (``detect_from_masks``, the JAX ``_detect_tail``: from the
+opened black mask and its pooling, as the row-sharded detector
+``parallel.spatial`` and the single-frame ``detect_arrays`` give them):
+kernel 2 in labels mode and kernel 7 (or kernels 5 and 6), merge, kernel 3
+on ``segment.near_mask(black)`` where refinement is on and ds > 1,
+finalize, then ``decode_tail``.
+
 On a CUDA tensor every kernel stage launches its hand-written kernel; on a
 CPU tensor the same function runs each kernel's plain PyTorch version.
 The warps sample with float32 weights where the JAX XLA warp rounds them
@@ -259,35 +266,11 @@ def detect_batch_arrays(
     coarse, near, level1 = threshold_open_pool(
         grey, cfg.threshold_window, params.open_radius, ds
     )
-    k1, k2 = params.max_candidates, params.max_inner_candidates
     tail = tail_route(params, ds)
-    inner_coarse = None
-    if not tail and fit_route(coarse.shape[1], coarse.shape[2], k1, k2) == "fused":
-        fit1, fit2, inner_coarse = coarse_fit(coarse, params, ds)
-    else:
-        labels1, labels2 = coarse_labels(coarse, params)
-        fit1, fit2 = fused_fit_batch(labels1, labels2, ds, params, k1, k2, dup_skip=True)
-    cand = segment.merge_fits(fit1, fit2, params, ds)
-    quads = cand["quads"]
-    if not tail:
-        if inner_coarse is None:  # label route: only refinement reads it
-            inner_coarse = (
-                segment.inner_footprint(labels2) if k2 > 0 else torch.zeros_like(coarse)
-            )
-        quads = refine_corners(
-            grey,
-            near,
-            quads.contiguous(),
-            cand["centroids"].contiguous(),
-            inner_coarse,
-            cand["is_inner"].contiguous(),
-            cand["valid"].contiguous(),
-            ds,
-            segment.refine_window_size(params, ds),
-        )
-    quads, valid, stats = segment.finalize_quads(
-        quads, cand["valid"], cand["sizes"], cand["overflow"], params, min_edge, min_sep
-    )
+    fused = not tail and fit_route(
+        coarse.shape[1], coarse.shape[2], params.max_candidates, params.max_inner_candidates
+    ) == "fused"
+    quads, valid, stats = candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused)
     if tail:
         out = decode_tail(grey, level1, quads, valid, stats, dictionary, cfg)
         out["grey"] = grey
@@ -306,6 +289,79 @@ def detect_batch_arrays(
     out["patches"] = patches
     out["grey"] = grey
     return out
+
+
+def candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused):
+    """Finalized candidate quads (quads, valid, stats) of (B, H, W) frames
+    from their coarse masks: both label planes fitted (``fused``: kernel 2
+    in fit mode; else kernel 2's labels mode, then kernel 7, or kernels 5
+    and 6 above 128 lanes), ``segment.merge_fits``, kernel 3's corner
+    refinement on ``near`` where ``params.refine`` and ds > 1, and
+    ``segment.finalize_quads``."""
+    k1, k2 = params.max_candidates, params.max_inner_candidates
+    inner_coarse = None
+    if fused:
+        fit1, fit2, inner_coarse = coarse_fit(coarse, params, ds)
+    else:
+        labels1, labels2 = coarse_labels(coarse, params)
+        fit1, fit2 = fused_fit_batch(labels1, labels2, ds, params, k1, k2, dup_skip=True)
+    cand = segment.merge_fits(fit1, fit2, params, ds)
+    quads = cand["quads"]
+    if params.refine and ds > 1:
+        if inner_coarse is None:  # label route: only refinement reads it
+            inner_coarse = (
+                segment.inner_footprint(labels2) if k2 > 0 else torch.zeros_like(coarse)
+            )
+        quads = refine_corners(
+            grey,
+            near,
+            quads.contiguous(),
+            cand["centroids"].contiguous(),
+            inner_coarse,
+            cand["is_inner"].contiguous(),
+            cand["valid"].contiguous(),
+            ds,
+            segment.refine_window_size(params, ds),
+        )
+    return segment.finalize_quads(
+        quads, cand["valid"], cand["sizes"], cand["overflow"], params, min_edge, min_sep
+    )
+
+
+def detect_from_masks(grey, black, coarse, dictionary, cfg, params, min_edge, min_sep, ds):
+    """Detection from masks (``_detect_tail`` of the JAX package), batched:
+    grey (B, H, W) u8, black (B, H, W) bool (the opened black mask), coarse
+    (B, Hc, Wc) bool (its pooling) -> the outputs of
+    ``detect_batch_arrays``.  The fit takes kernel 2's labels mode and
+    kernel 7 (or kernels 5 and 6); where ``params.refine`` and ds > 1,
+    kernel 3 refines on ``segment.near_mask(black)``; ``decode_tail``
+    decodes with kernel 8 on the pyramid of ``rectify.level1_plane(grey)``."""
+    near = segment.near_mask(black) if params.refine and ds > 1 else None
+    quads, valid, stats = candidates(grey, near, coarse, params, min_edge, min_sep, ds, False)
+    out = decode_tail(grey, rectify.level1_plane(grey), quads, valid, stats, dictionary, cfg)
+    out["grey"] = grey
+    return out
+
+
+def detect_arrays(image, dictionary, cfg, params, min_edge, min_sep, ds) -> dict:
+    """The single-frame pipeline (``detect_arrays`` of the JAX package):
+    one (H, W[, C]) uint8 frame -> the outputs of ``detect_batch_arrays``
+    for that frame, without the batch axis (stats as 0-d tensors).  Kernel
+    1 gives the opened black mask and its pooling (``opened=True``), then
+    ``detect_from_masks``."""
+    grey = frontend.rgb_to_luma_u8(image[None]).contiguous()
+    coarse, _, _, black = threshold_open_pool(
+        grey, cfg.threshold_window, params.open_radius, ds, opened=True
+    )
+    out = detect_from_masks(grey, black, coarse, dictionary, cfg, params, min_edge, min_sep, ds)
+    return frame_of(out, 0)
+
+
+def frame_of(out: dict, index: int) -> dict:
+    """Frame ``index`` of a batched output dict (stats included)."""
+    frame = {k: v[index] for k, v in out.items() if torch.is_tensor(v)}
+    frame["stats"] = {k: v[index] for k, v in out["stats"].items()}
+    return frame
 
 
 def decode_tail(grey, level1, quads, quad_valid, stats, dictionary, cfg):

@@ -104,7 +104,7 @@ def _run(cmds: list[list[str]]) -> None:
         if proc.returncode != 0:
             failed.append(" ".join(cmd) + "\n" + log)
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
 
 
 def build() -> Path:

@@ -57,6 +57,27 @@ Phases, each printing lines of numbers:
    against ``grid_sample`` and the tail route's warp + decode against
    kernel 4's.
 
+Phases 6-10 drive the other entry points, each once:
+
+6. parity: ``parity.score`` of the port's detector on the card against
+   the reference oracle on 20 seeded 1080p ``ARUCO_MIP_36H12`` scenes
+   (seed 5), at least 0.99.  The scenes and the oracle's detections
+   (``parity.reference_scenes``, host numpy) are made in a process of
+   their own while phases 2-4 run; phase 5 waits for it;
+7. stream: ``StreamPipeline`` at BASELINE config 5's shape (4 streams of
+   1080x1920, batch 8, rings of 8) on the native ring, 32 frames, twice;
+   every lane equal to ``detect_batch``; frames/s and host ms per batch
+   in each hook;
+8. sharded: ``detect_sharded`` with pose at NCCL world size 1, equal to
+   ``detect_batch`` + ``solve_normalized_batch`` (integers and poses);
+9. spatial: ``detect_spatial`` at NCCL world size 1, and the frame as 4
+   row bands in this process through ``detect_from_masks``: ids of
+   ``Detector.detect``, corners within 1 px, kernels 2 (labels), 7, 3
+   and 8 launched and not kernel 1; kernels 3 and 8 there against their
+   plain versions;
+10. detect_arrays: kernel 1's opened mask against its plain version, and
+    ``detect_arrays`` against ``Detector.detect``.
+
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Imports no JAX.
 
@@ -814,11 +835,310 @@ def path_inputs():
     return paths, truths
 
 
+# Phases 6-10: the entry points beside ``detect_batch``.
+PARITY_SCENES, PARITY_SEED, PARITY_GATE = 20, 5, 0.99  # tests/test_parity.py's 1080p gate
+STREAMS, STREAM_BATCH, STREAM_RING, STREAM_FRAMES = 4, 8, 8, 32  # BASELINE config 5
+BANDS = 4  # row bands of the in-process spatial run
+MASKS_KERNELS = ("coarse_labels", "fused_fit", "refine", "warp_eval")
+
+
+def parity_reference(workers: int):
+    """Phase 6's reference side: the 20 seeded 1080p scenes and the
+    oracle's detections (host numpy; run in a process of its own beside
+    phases 2-4)."""
+    from aruco3_tpu_torch import parity
+
+    t0 = time.perf_counter()
+    scenes = parity.reference_scenes(DICT_NAME, PARITY_SCENES, (LANDSCAPE_HW[1], LANDSCAPE_HW[0]),
+                                     PARITY_SEED, workers)
+    return scenes, time.perf_counter() - t0
+
+
+def parity_phase(card, scenes, reference_s) -> None:
+    """Phase 6: the port's detector on the card against the oracle on the
+    reference scenes (``parity.score``, as ``parity.run_parity``)."""
+    from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig, parity
+
+    t0 = time.perf_counter()
+    det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict(DICT_NAME), device="cuda")
+    res = parity.score(det, scenes)
+    s = res.summary()
+    log("parity", card=repr(card), dictionary=DICT_NAME, scenes=res.n_scenes,
+        markers=res.n_markers, oracle_found=res.oracle_found, port_found=res.tpu_found,
+        both_found=res.both_found, parity=res.parity, missed=res.missed,
+        port_only=res.port_only, port_corner_mean_px=s["tpu_corner_mean_px"],
+        reference_seconds=round(reference_s, 1), detect_seconds=round(time.perf_counter() - t0, 1))
+    require(res.oracle_found >= 0.7 * res.n_markers, "parity: the oracle found too few markers")
+    require(res.parity >= PARITY_GATE, f"parity {res.parity} below {PARITY_GATE}")
+
+
+def lane_markers(out, lane, ref, f) -> None:
+    """Lane ``lane`` of ``out`` against frame ``f`` of ``ref``: the same
+    valid lanes, ids and corners."""
+    import torch
+
+    valid = ref["marker_valid"][f]
+    require(torch.equal(out["marker_valid"][lane], valid), "stream: valid lanes differ")
+    for key in ("marker_id", "marker_corners"):
+        require(torch.equal(out[key][lane][valid], ref[key][f][valid]), f"stream: {key} differs")
+
+
+def stream_run(det, frames, ref):
+    """One run of ``StreamPipeline`` at BASELINE config 5's shape: 32
+    frames pushed before the start, every lane checked against ``ref``
+    (``detect_batch`` of ``frames``).  Returns (frames/s from the start to
+    the last batch's completion, the pipeline, host seconds in each hook)."""
+    from aruco3_tpu_torch.runtime import stream as rt
+
+    class Timed(rt.StreamPipeline):
+        """Host seconds spent in each hook of the worker's loop."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.hook_s = {"assemble": 0.0, "dispatch": 0.0, "sync": 0.0}
+
+        def _assemble(self):
+            t0 = time.perf_counter()
+            out = super()._assemble()
+            if out[3]:
+                self.hook_s["assemble"] += time.perf_counter() - t0
+            return out
+
+        def _dispatch(self, batch):
+            t0 = time.perf_counter()
+            out = super()._dispatch(batch)
+            self.hook_s["dispatch"] += time.perf_counter() - t0
+            return out
+
+        def _sync(self, out):
+            t0 = time.perf_counter()
+            super()._sync(out)
+            self.hook_s["sync"] += time.perf_counter() - t0
+
+    h, w = LANDSCAPE_HW
+    pipe = Timed(det, (h, w), n_streams=STREAMS, batch=STREAM_BATCH, ring_capacity=STREAM_RING)
+    require(all(r.native for r in pipe.rings), "stream: the native ring did not build")
+    n = len(frames)
+    for i in range(STREAM_FRAMES // STREAMS):
+        for s in range(STREAMS):
+            pipe.push(s, frames[(s + i) % n])
+    items = []
+    t0 = time.perf_counter()
+    pipe.start()
+    deadline = t0 + 120
+    while time.perf_counter() < deadline and pipe.stats.frames < STREAM_FRAMES:
+        items += pipe.drain()
+        time.sleep(0.0005)
+    elapsed = time.perf_counter() - t0
+    pipe.stop()
+    items += pipe.drain()
+    require(pipe.stats.frames == STREAM_FRAMES, f"stream: {pipe.stats.frames} frames came out")
+    lanes = 0
+    for item in items:
+        require(item["outputs"]["done"].query(), "stream: a result came before its batch ended")
+        for lane, (s, seq) in enumerate(zip(item["stream_ids"], item["seqs"])):
+            if s >= 0:
+                lane_markers(item["outputs"], lane, ref, (int(s) + int(seq)) % n)
+                lanes += 1
+    require(lanes == STREAM_FRAMES, f"stream: {lanes} lanes checked")
+    return STREAM_FRAMES / elapsed, pipe, pipe.hook_s
+
+
+def stream_phase(det, frames, card) -> None:
+    """Phase 7: ``StreamPipeline`` at BASELINE config 5's shape (4 streams
+    of 1080x1920, batch 8, rings of 8) on the native ring, twice: the
+    first run allocates the pinned buffers and the copy stream, the second
+    finds them in PyTorch's caches.  Each lane against ``detect_batch``."""
+    import torch
+
+    ref = det.detect_batch(torch.from_numpy(frames).cuda())
+    det.detect_batch(torch.from_numpy(np.concatenate([frames, frames])).cuda())  # batch-8 warm-up
+    torch.cuda.synchronize()
+    for run in ("first", "second"):
+        fps, pipe, hook_s = stream_run(det, frames, ref)
+        b = pipe.stats.batches
+        log("stream", run=run, card=repr(card), streams=STREAMS, batch=STREAM_BATCH,
+            frames=pipe.stats.frames, batches=b, native_ring=True, frames_per_s=round(fps, 1),
+            assemble_ms_per_batch=round(hook_s["assemble"] * 1e3 / b, 3),
+            dispatch_ms_per_batch=round(hook_s["dispatch"] * 1e3 / b, 3),
+            sync_ms_per_batch=round(hook_s["sync"] * 1e3 / b, 3),
+            ring_dropped=sum(r.dropped for r in pipe.rings),
+            results_dropped=pipe.stats.results_dropped, lanes_equal_detect_batch=STREAM_FRAMES)
+
+
+def sharded_phase(det, frames) -> None:
+    """Phase 8: ``detect_sharded`` with pose at NCCL world size 1 against
+    ``detect_batch`` + ``solve_normalized_batch`` of the same batch."""
+    import torch
+
+    from aruco3_tpu_torch.parallel import sharding
+
+    batch = torch.from_numpy(frames).cuda()
+    got = sharding.detect_sharded(det, batch, with_pose=True)
+    out, rot, tr, err = detect_and_pose(det, batch)
+    ref = dict(out, pose_rotations=rot, pose_translations=tr, pose_errors=err)
+    valid = ref["marker_valid"]
+    mism = {k: mismatches(got[k], ref[k]) for k in ("marker_valid", "marker_id", "marker_dist",
+                                                    "marker_code")}
+    mism["marker_corners"] = mismatches(got["marker_corners"][valid], ref["marker_corners"][valid])
+    pose_diff = max(float((got[k][valid] - ref[k][valid]).abs().max()) for k in sharding.POSE_KEYS)
+    log("sharded", backend="nccl", world=1, frames=len(frames), markers=int(valid.sum()),
+        pose_max_abs_diff=pose_diff, **{f"{k}_mismatch": v for k, v in mism.items()})
+    require(sum(mism.values()) == 0, "sharded: outputs differ from detect_batch")
+    require(pose_diff == 0.0, f"sharded: poses differ by {pose_diff}")
+
+
+def masks_stage_inputs(grey, black, coarse, det):
+    """Kernels 3 and 8's arguments on the masks route (``detect_from_masks``)
+    of (B, H, W) grey frames and their masks, and the tail route's warp
+    inputs for ``compare``."""
+    import torch
+
+    from aruco3_tpu_torch import rectify, segment
+    from aruco3_tpu_torch.ops import coarse_fit, fit, refine
+    from aruco3_tpu_torch.parallel import sharding
+
+    params, min_edge, min_sep, ds = sharding.parallel_geometry(det.config, *grey.shape[1:])
+    k1, k2 = params.max_candidates, params.max_inner_candidates
+    l1, l2 = coarse_fit.coarse_labels(coarse, params)
+    fit1, fit2 = fit.fused_fit_batch(l1, l2, ds, params, k1, k2, dup_skip=True)
+    cand = segment.merge_fits(fit1, fit2, params, ds)
+    ic = segment.inner_footprint(l2) if k2 > 0 else torch.zeros_like(coarse)
+    args = {"refine": (grey, segment.near_mask(black), cand["quads"].contiguous(),
+                       cand["centroids"].contiguous(), ic, cand["is_inner"].contiguous(),
+                       cand["valid"].contiguous(), ds, segment.refine_window_size(params, ds))}
+    quads, valid, _ = segment.finalize_quads(refine.refine_corners(*args["refine"]), cand["valid"],
+                                             cand["sizes"], cand["overflow"], params, min_edge,
+                                             min_sep)
+    s = det.config.homography_sample_size
+    H, h_valid = rectify.homography_square_to_quad(quads, s)
+    windows, ux, uy, bad = rectify.warp_setup(grey, rectify.level1_plane(grey), H, quads, s)
+    args["warp_eval"] = (windows.reshape(-1, rectify.WARP_WIN, rectify.WARP_WIN),
+                         ux.reshape(-1, s * s), uy.reshape(-1, s * s))
+    return args, params, {"valid": valid & h_valid, "bad": bad.reshape(-1, s * s),
+                          "mark": det.dictionary.get_mark_size()}
+
+
+def counted(path, fn, kernels):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: the kernels named launched, no other and no plain version."""
+    import torch
+
+    counts = counters()
+    for c in counts.values():
+        c.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counts.items()}
+    log(f"path {path} counts", **{f"launches_{k}": v for k, v in launches.items()})
+    for name, c in counts.items():
+        require((c.launches > 0) == (name in kernels),
+                f"{path}: kernel {name} launched {c.launches} times")
+        require(c.plain_calls == 0, f"{path}: the plain version of {name} ran")
+    return out
+
+
+def same_markers(path, out, single) -> float:
+    """The valid ids of a single-frame output against ``Detector.detect``'s
+    markers, corners within 1 px; returns the worst corner difference."""
+    valid = out["marker_valid"].cpu().numpy()
+    got = sorted((int(i), c.tolist()) for i, c, v in zip(
+        out["marker_id"].cpu().numpy(), out["marker_corners"].cpu().numpy(), valid) if v)
+    ref = sorted((m.id, [list(p) for p in m.corners]) for m in single.markers)
+    require([i for i, _ in got] == [i for i, _ in ref],
+            f"{path}: ids {[i for i, _ in got]} against {[i for i, _ in ref]}")
+    worst = max((float(np.abs(np.array(a) - np.array(b)).max()) for (_, a), (_, b) in zip(got, ref)),
+                default=0.0)
+    require(worst <= 1.0, f"{path}: corners {worst} px from Detector.detect")
+    return worst
+
+
+def spatial_phase(det, scene) -> None:
+    """Phase 9: ``detect_spatial`` on the 1080p landscape frame at NCCL
+    world size 1, and the frame as 4 row bands in this process (each
+    band's halo cut from the frame, as the exchange delivers it), both
+    against ``Detector.detect``; launches of the masks route; kernels 3
+    and 8 on that route against their plain versions."""
+    import torch
+
+    from aruco3_tpu_torch import segment
+    from aruco3_tpu_torch.detector import detect_from_masks, frame_of
+    from aruco3_tpu_torch.parallel import sharding, spatial
+
+    single = det.detect(scene)
+    out = counted("spatial", lambda: spatial.detect_spatial(det, torch.from_numpy(scene)),
+                  MASKS_KERNELS)
+    worst = same_markers("spatial", out, single)
+    h, w = scene.shape
+    grey = torch.from_numpy(scene).cuda()
+    params, min_edge, min_sep, ds = sharding.parallel_geometry(det.config, h, w)
+    require(h % (BANDS * ds) == 0, f"spatial: {h} rows in {BANDS} bands of whole cells")
+    window = det.config.threshold_window
+    halo = window + 2 * spatial.OPEN_RADIUS
+    hs = h // BANDS
+    zeros = torch.zeros((halo, w), dtype=torch.uint8, device=grey.device)
+    padded = torch.cat([zeros, grey, zeros])
+    black = torch.cat([spatial._threshold_open_tile(padded[r * hs : r * hs + hs + 2 * halo],
+                                                    r * hs, h, w, window, spatial.OPEN_RADIUS,
+                                                    halo) for r in range(BANDS)])
+    coarse = segment.pool_black(black.reshape(BANDS, hs, w), ds).reshape(-1, (w + ds - 1) // ds)
+    bands = counted("spatial bands", lambda: frame_of(detect_from_masks(
+        grey[None], black[None], coarse[None], det.dictionary, det.config, params, min_edge,
+        min_sep, ds), 0), MASKS_KERNELS)
+    worst_b = same_markers("spatial bands", bands, single)
+    log("spatial", backend="nccl", world=1, bands=BANDS, halo=halo, ids=sorted(
+        m.id for m in single.markers), worst_corner_diff_px=worst, bands_worst_corner_diff_px=worst_b)
+    args, params, tail = masks_stage_inputs(grey[None], black[None], coarse[None], det)
+    compare_kernels("spatial", args, params, tail)
+
+
+def detect_arrays_phase(det, scene) -> None:
+    """Phase 10: kernel 1's opened black mask (and its other outputs)
+    against the plain version on the landscape frame, and
+    ``detector.detect_arrays`` against ``Detector.detect``."""
+    import torch
+
+    from aruco3_tpu_torch.detector import detect_arrays
+    from aruco3_tpu_torch.ops import frontend
+
+    h, w = scene.shape
+    grey = torch.from_numpy(scene).cuda()
+    params, min_edge, min_sep, ds = det.geometry(h, w)
+    a = (grey[None], det.config.threshold_window, params.open_radius, ds)
+    got = frontend.threshold_open_pool(*a, opened=True)
+    ref = frontend.plain(*a, opened=True)
+    mism = {f"{k}_mismatch": mismatches(x, y)
+            for k, x, y in zip(("coarse", "near", "level1", "opened"), got, ref)}
+    require(sum(mism.values()) == 0, "detect_arrays: kernel 1 differs from its plain version")
+    out = counted("detect_arrays", lambda: detect_arrays(
+        grey, det.dictionary, det.config, params, min_edge, min_sep, ds),
+        ("frontend",) + MASKS_KERNELS)
+    worst = same_markers("detect_arrays", out, det.detect(scene))
+    log("detect_arrays", opened_pixels=int(got[3].sum()), worst_corner_diff_px=worst, **mism)
+
+
 def main() -> int:
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs an NVIDIA card")
+    import aruco3_tpu_torch  # noqa: F401  (fails at once outside a checkout)
+
+    # Phase 6's reference side renders and runs the oracle on the host
+    # beside phases 2-4; phase 5 starts after it has ended, so that its
+    # timings have the host to themselves.
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as bg:
+        reference = bg.submit(parity_reference, max(1, (os.cpu_count() or 3) - 2))
+        return run(reference)
+
+
+def run(reference) -> int:
+    import torch
+
     card = smi_line()
     log("device", card=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
         count=torch.cuda.device_count())
@@ -883,6 +1203,11 @@ def main() -> int:
         candidates_equal_cpu=cand_eq)
     del s16
 
+    t_wait = time.perf_counter()
+    parity_scenes, reference_s = reference.result()
+    log("parity reference", scenes=len(parity_scenes), seconds=round(reference_s, 1),
+        waited_s=round(time.perf_counter() - t_wait, 1))
+
     # Phase 5: throughput, kernel against plain version, route comparison.
     at_batch = {}
     for path, batch in BATCHES.items():
@@ -910,6 +1235,19 @@ def main() -> int:
         for name in ("refine", "warp_decode"):
             kernel_timing(name, path, table[name], args_of[path][name], phase3[path][name],
                           at_batch[path][name], launches_of[path][name], card)
+    # Phases 6-10: parity, stream, sharded, spatial, detect_arrays.
+    import torch.distributed as dist
+
+    parity_phase(card, parity_scenes, reference_s)
+    stream_phase(det, paths["landscape"][1], card)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        sharded_phase(det, paths["landscape"][1])
+        spatial_phase(det, scene)
+    finally:
+        dist.destroy_process_group()
+    detect_arrays_phase(det, scene)
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -172,7 +172,10 @@ def test_render_matches_jax():
 def test_port_imports_without_jax():
     code = (
         "import sys; import aruco3_tpu_torch, aruco3_tpu_torch.convert, "
-        "aruco3_tpu_torch.ops._build, aruco3_tpu_torch.render; "
+        "aruco3_tpu_torch.ops._build, aruco3_tpu_torch.render, "
+        "aruco3_tpu_torch.parity, aruco3_tpu_torch.oracle, aruco3_tpu_torch.runtime.stream, "
+        "aruco3_tpu_torch.parallel.sharding, aruco3_tpu_torch.parallel.spatial, "
+        "aruco3_tpu_torch.utils.profiling, aruco3_tpu_torch.utils.imageio; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'aruco3_tpu' not in sys.modules, 'aruco3_tpu imported'"
     )
@@ -195,8 +198,8 @@ def test_codebooks_are_a_copy_of_the_jax_data():
 def test_port_reads_no_file_of_the_jax_package():
     """Import the port, load every dictionary and detect frames on the CPU
     (both fit routes of the refine route; the tail route at coarse factor
-    1 and without refinement) while an audit hook records every file
-    opened."""
+    1 and without refinement; the oracle and a parity scene) while an
+    audit hook records every file opened."""
     code = (
         "import os, sys\n"
         "opened = []\n"
@@ -212,6 +215,12 @@ def test_port_reads_no_file_of_the_jax_package():
         "Detector(DetectorConfig(max_candidates=130), d, device='cpu').detect(img)\n"
         "Detector(DetectorConfig(refine_corners=False), d, device='cpu').detect(\n"
         "    np.tile(img, (2, 2)))\n"
+        "from aruco3_tpu_torch import oracle, parity\n"
+        "from aruco3_tpu_torch.parallel import sharding, spatial\n"
+        "from aruco3_tpu_torch.runtime import stream\n"
+        "from aruco3_tpu_torch.utils import imageio, profiling\n"
+        "assert oracle.OracleDetector(d).detect(img)\n"
+        "assert parity.run_parity(n_scenes=1, image_size=(160, 120), device='cpu').n_scenes == 1\n"
         "jax_dir = os.path.join(os.getcwd(), 'aruco3_tpu') + os.sep\n"
         "bad = [p for p in opened if os.path.abspath(p).startswith(jax_dir)]\n"
         "assert not bad, bad\n"
