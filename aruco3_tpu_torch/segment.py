@@ -10,7 +10,7 @@ the labelling are the same round-limited algorithm, not a converged one.
 On the card, ``label_planes`` is kernel 2 (``ops.coarse_fit``, labels
 mode, or fit mode together with ``fit_quads``), ``rank_pool`` and
 ``fit_lanes`` are kernels 5 and 6 and the fit of both planes kernel 7
-(``ops.fit``), and the window search of ``refine_corners`` is kernel 3
+(``ops.fit``), and the window search of ``refine_windows`` is kernel 3
 (``ops.refine``); each is held bit-equal to the functions here.
 """
 
@@ -544,7 +544,9 @@ def refine_windows(
     inner_coarse: torch.Tensor | None = None,
     is_inner: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The window search of ``refine_corners`` given the near mask.
+    """The window search of the JAX package's ``refine_corners`` given the
+    near mask: each coarse corner snaps to the extreme full-res ink pixel
+    within Chebyshev distance ds+2.
 
     near (B, H, W) bool; quads (B, K, 4, 2); centroids (B, K, 2);
     grey (B, H, W) u8 or None; inner_coarse (B, Hc, Wc) bool or None;
@@ -599,25 +601,6 @@ def refine_windows(
     by = (tly + best // wn).to(torch.float32)
     refined = torch.stack([bx, by], dim=-1)
     return torch.where(has[..., None], refined, quads)
-
-
-def refine_corners(
-    black: torch.Tensor,
-    quads: torch.Tensor,
-    centroids: torch.Tensor,
-    ds: int,
-    window: int,
-    grey: torch.Tensor | None = None,
-    inner_coarse: torch.Tensor | None = None,
-    is_inner: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Snap each coarse corner to the extreme full-res ink pixel within
-    Chebyshev distance ds+2 (see the JAX package).  Batched: black (B, H,
-    W), quads (B, K, 4, 2)."""
-    near = near_mask(black) if grey is not None else black
-    return refine_windows(
-        near, quads, centroids, ds, window, grey, inner_coarse, is_inner
-    )
 
 
 # --------------------------------------------------------------------------
@@ -776,47 +759,3 @@ def fit_planes(coarse: torch.Tensor, params: QuadParams, ds: int):
         return labels, fit1, None, torch.zeros_like(coarse)
     fit2 = fit_quads(labels2, ds, params, k=k2)
     return labels, fit1, fit2, inner_footprint(labels2)
-
-
-def find_quads_from_masks(
-    black: torch.Tensor,
-    coarse: torch.Tensor,
-    params: QuadParams,
-    min_edge_length: float,
-    min_corner_separation: float,
-    ds: int,
-    grey: torch.Tensor | None = None,
-):
-    """(B, H, W) opened black + (B, Hc, Wc) pooled masks -> fixed-capacity
-    quads, all in plain PyTorch."""
-    labels, fit1, fit2, inner_coarse = fit_planes(coarse, params, ds)
-    cand = merge_fits(fit1, fit2, params, ds)
-    quads = cand["quads"]
-    if params.refine and ds > 1:
-        quads = refine_corners(
-            black,
-            quads,
-            cand["centroids"],
-            ds,
-            refine_window_size(params, ds),
-            grey=grey,
-            inner_coarse=inner_coarse,
-            is_inner=cand["is_inner"],
-        )
-    quads, valid, stats = finalize_quads(
-        quads,
-        cand["valid"],
-        cand["sizes"],
-        cand["overflow"],
-        params,
-        min_edge_length,
-        min_corner_separation,
-    )
-    return {
-        "quads": quads,
-        "valid": valid,
-        "labels": labels,
-        "coarse_factor": ds,
-        "sizes": cand["sizes"],
-        "stats": stats,
-    }

@@ -65,9 +65,11 @@ Phases 6-10 drive the other entry points, each once:
    (``parity.reference_scenes``, host numpy) are made in a process of
    their own while phases 2-4 run; phase 5 waits for it;
 7. stream: ``StreamPipeline`` at BASELINE config 5's shape (4 streams of
-   1080x1920, batch 8, rings of 8) on the native ring, 32 frames, twice;
-   every lane equal to ``detect_batch``; frames/s and host ms per batch
-   in each hook;
+   1080x1920, batch 8, rings of 8) on the native ring: 32 frames with
+   every lane equal to ``detect_batch``, then three 3-second windows with
+   the rings kept full (lanes checked too), frames/s counted from the
+   first completed batch, host ms per batch in each hook, beside
+   ``detect_batch`` alone at batch 8 (event and device ms);
 8. sharded: ``detect_sharded`` with pose at NCCL world size 1, equal to
    ``detect_batch`` + ``solve_normalized_batch`` (integers and poses);
 9. spatial: ``detect_spatial`` at NCCL world size 1, and the frame as 4
@@ -838,6 +840,7 @@ def path_inputs():
 # Phases 6-10: the entry points beside ``detect_batch``.
 PARITY_SCENES, PARITY_SEED, PARITY_GATE = 20, 5, 0.99  # tests/test_parity.py's 1080p gate
 STREAMS, STREAM_BATCH, STREAM_RING, STREAM_FRAMES = 4, 8, 8, 32  # BASELINE config 5
+STREAM_WINDOW_S, STREAM_REPEATS = 3.0, 3  # the rate windows of phase 7
 BANDS = 4  # row bands of the in-process spatial run
 MASKS_KERNELS = ("coarse_labels", "fused_fit", "refine", "warp_eval")
 
@@ -883,56 +886,50 @@ def lane_markers(out, lane, ref, f) -> None:
         require(torch.equal(out[key][lane][valid], ref[key][f][valid]), f"stream: {key} differs")
 
 
-def stream_run(det, frames, ref):
-    """One run of ``StreamPipeline`` at BASELINE config 5's shape: 32
-    frames pushed before the start, every lane checked against ``ref``
-    (``detect_batch`` of ``frames``).  Returns (frames/s from the start to
-    the last batch's completion, the pipeline, host seconds in each hook)."""
+def timed_pipeline(det):
+    """A ``StreamPipeline`` at BASELINE config 5's shape that records the
+    host seconds of each hook, per batch, and when each batch completed."""
     from aruco3_tpu_torch.runtime import stream as rt
 
     class Timed(rt.StreamPipeline):
-        """Host seconds spent in each hook of the worker's loop."""
-
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
-            self.hook_s = {"assemble": 0.0, "dispatch": 0.0, "sync": 0.0}
+            self.hook_s = {"assemble": [], "dispatch": [], "sync": []}
+            self.completed = []  # (perf_counter after the batch's sync, real frames)
 
         def _assemble(self):
             t0 = time.perf_counter()
             out = super()._assemble()
             if out[3]:
-                self.hook_s["assemble"] += time.perf_counter() - t0
+                self.hook_s["assemble"].append(time.perf_counter() - t0)
             return out
 
         def _dispatch(self, batch):
             t0 = time.perf_counter()
             out = super()._dispatch(batch)
-            self.hook_s["dispatch"] += time.perf_counter() - t0
+            self.hook_s["dispatch"].append(time.perf_counter() - t0)
             return out
 
         def _sync(self, out):
             t0 = time.perf_counter()
             super()._sync(out)
-            self.hook_s["sync"] += time.perf_counter() - t0
+            self.hook_s["sync"].append(time.perf_counter() - t0)
+
+        def _complete(self, pending):
+            super()._complete(pending)
+            self.completed.append((time.perf_counter(), pending[-1]))
 
     h, w = LANDSCAPE_HW
     pipe = Timed(det, (h, w), n_streams=STREAMS, batch=STREAM_BATCH, ring_capacity=STREAM_RING)
     require(all(r.native for r in pipe.rings), "stream: the native ring did not build")
-    n = len(frames)
-    for i in range(STREAM_FRAMES // STREAMS):
-        for s in range(STREAMS):
-            pipe.push(s, frames[(s + i) % n])
-    items = []
-    t0 = time.perf_counter()
-    pipe.start()
-    deadline = t0 + 120
-    while time.perf_counter() < deadline and pipe.stats.frames < STREAM_FRAMES:
-        items += pipe.drain()
-        time.sleep(0.0005)
-    elapsed = time.perf_counter() - t0
-    pipe.stop()
-    items += pipe.drain()
-    require(pipe.stats.frames == STREAM_FRAMES, f"stream: {pipe.stats.frames} frames came out")
+    return pipe
+
+
+def check_lanes(items, ref, n) -> int:
+    """Every real lane of the drained ``items`` against ``ref``
+    (``detect_batch`` of the ``n`` frames; stream s's k-th push is frame
+    (s + k) % n, and with no ring drops its seq is k).  Returns the lanes
+    checked."""
     lanes = 0
     for item in items:
         require(item["outputs"]["done"].query(), "stream: a result came before its batch ended")
@@ -940,30 +937,132 @@ def stream_run(det, frames, ref):
             if s >= 0:
                 lane_markers(item["outputs"], lane, ref, (int(s) + int(seq)) % n)
                 lanes += 1
+    return lanes
+
+
+def collect(pipe, items, until, deadline) -> None:
+    """Blocking drains of ``pipe.results`` into ``items`` (only the keys
+    the lane check reads) until ``until()`` or the deadline."""
+    import queue
+
+    keep = ("marker_valid", "marker_id", "marker_corners", "done")
+    while not until() and time.perf_counter() < deadline:
+        try:
+            item = pipe.results.get(timeout=0.05)
+        except queue.Empty:
+            continue
+        item["outputs"] = {k: item["outputs"][k] for k in keep}
+        items.append(item)
+
+
+def stream_check(det, frames, ref) -> int:
+    """32 frames pushed before the start, every lane against ``ref``."""
+    pipe = timed_pipeline(det)
+    n = len(frames)
+    for i in range(STREAM_FRAMES // STREAMS):
+        for s in range(STREAMS):
+            pipe.push(s, frames[(s + i) % n])
+    items = []
+    pipe.start()
+    collect(pipe, items, lambda: pipe.stats.frames >= STREAM_FRAMES, time.perf_counter() + 120)
+    pipe.stop()
+    items += pipe.drain()
+    require(pipe.stats.frames == STREAM_FRAMES, f"stream: {pipe.stats.frames} frames came out")
+    lanes = check_lanes(items, ref, n)
     require(lanes == STREAM_FRAMES, f"stream: {lanes} lanes checked")
-    return STREAM_FRAMES / elapsed, pipe, pipe.hook_s
+    return lanes
+
+
+def stream_window(det, frames, ref) -> dict:
+    """One rate window: a producer thread keeps every ring topped up (it
+    pushes only into a ring that has room, so nothing is dropped) while
+    the pipeline runs for STREAM_WINDOW_S seconds after its first batch
+    completed.  Frames/s counts the frames of the batches completed after
+    the first over the time between the first completion and the last, so
+    the worker's start and the first dispatch stay outside.  Every lane
+    drained is checked against ``ref``."""
+    import threading
+
+    pipe = timed_pipeline(det)
+    n = len(frames)
+    pushed = [0] * STREAMS
+    stop = threading.Event()
+
+    def produce():
+        while not stop.is_set():
+            room = False
+            for s, ring in enumerate(pipe.rings):
+                if len(ring) < ring.capacity:
+                    pipe.push(s, frames[(s + pushed[s]) % n])
+                    pushed[s] += 1
+                    room = True
+            if not room:
+                time.sleep(0.0002)
+
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
+    items = []
+    pipe.start()
+    done = pipe.completed
+    try:
+        collect(pipe, items, lambda: len(done) > 1 and done[-1][0] - done[0][0] >= STREAM_WINDOW_S,
+                time.perf_counter() + 60)
+    finally:
+        stop.set()
+        producer.join(timeout=10)
+        pipe.stop()
+    items += pipe.drain()
+    require(len(done) > 1 and done[-1][0] - done[0][0] >= STREAM_WINDOW_S,
+            f"stream: {len(done)} batches in the 60 s limit")
+    require(sum(r.dropped for r in pipe.rings) == 0, "stream: a ring dropped a frame")
+    lanes = check_lanes(items, ref, n)
+    t_first, t_last = done[0][0], done[-1][0]
+    frames_after = sum(k for _, k in done[1:])
+    return {
+        "frames_per_s": frames_after / (t_last - t_first),
+        "batches": len(done),
+        "window_s": t_last - t_first,
+        "lanes": lanes,
+        "results_dropped": pipe.stats.results_dropped,
+        # hook ms per batch, the first batch (pinned allocation) left out
+        **{f"{k}_ms_per_batch": 1e3 * sum(v[1:]) / max(1, len(v) - 1)
+           for k, v in pipe.hook_s.items()},
+    }
 
 
 def stream_phase(det, frames, card) -> None:
     """Phase 7: ``StreamPipeline`` at BASELINE config 5's shape (4 streams
-    of 1080x1920, batch 8, rings of 8) on the native ring, twice: the
-    first run allocates the pinned buffers and the copy stream, the second
-    finds them in PyTorch's caches.  Each lane against ``detect_batch``."""
+    of 1080x1920, batch 8, rings of 8) on the native ring.  A check run of
+    32 frames, every lane against ``detect_batch``; then STREAM_REPEATS
+    rate windows of STREAM_WINDOW_S seconds each with the rings kept full
+    (their lanes checked too), beside ``detect_batch`` alone at batch 8
+    on frames already on the card: its event time (host launch loop
+    included) and its device time (kernels only)."""
+    import statistics
+
     import torch
 
     ref = det.detect_batch(torch.from_numpy(frames).cuda())
-    det.detect_batch(torch.from_numpy(np.concatenate([frames, frames])).cuda())  # batch-8 warm-up
-    torch.cuda.synchronize()
-    for run in ("first", "second"):
-        fps, pipe, hook_s = stream_run(det, frames, ref)
-        b = pipe.stats.batches
-        log("stream", run=run, card=repr(card), streams=STREAMS, batch=STREAM_BATCH,
-            frames=pipe.stats.frames, batches=b, native_ring=True, frames_per_s=round(fps, 1),
-            assemble_ms_per_batch=round(hook_s["assemble"] * 1e3 / b, 3),
-            dispatch_ms_per_batch=round(hook_s["dispatch"] * 1e3 / b, 3),
-            sync_ms_per_batch=round(hook_s["sync"] * 1e3 / b, 3),
-            ring_dropped=sum(r.dropped for r in pipe.rings),
-            results_dropped=pipe.stats.results_dropped, lanes_equal_detect_batch=STREAM_FRAMES)
+    b8 = torch.from_numpy(np.concatenate([frames, frames])).cuda()
+    batch_ms = cuda_ms(lambda: det.detect_batch(b8), reps=10)
+    batch_device_ms = device_ms(lambda: det.detect_batch(b8), reps=10)
+    del b8
+    lanes = stream_check(det, frames, ref)
+    log("stream check", streams=STREAMS, batch=STREAM_BATCH, frames=STREAM_FRAMES,
+        native_ring=True, lanes_equal_detect_batch=lanes)
+    rates = []
+    for run in range(STREAM_REPEATS):
+        r = stream_window(det, frames, ref)
+        rates.append(r["frames_per_s"])
+        log("stream window", run=run, card=repr(card),
+            **{k: (round(v, 3) if isinstance(v, float) else v) for k, v in r.items()})
+    med = statistics.median(rates)
+    log("stream", card=repr(card), streams=STREAMS, batch=STREAM_BATCH, windows=STREAM_REPEATS,
+        window_s=STREAM_WINDOW_S, frames_per_s_median=round(med, 1),
+        frames_per_s_min=round(min(rates), 1), frames_per_s_max=round(max(rates), 1),
+        spread=round((max(rates) - min(rates)) / med, 3),
+        ms_per_batch_median=round(1e3 * STREAM_BATCH / med, 3),
+        detect_batch_event_ms=round(batch_ms, 3), detect_batch_device_ms=round(batch_device_ms, 3))
 
 
 def sharded_phase(det, frames) -> None:

@@ -14,7 +14,7 @@ from aruco3_tpu import frontend as jfrontend
 from aruco3_tpu import render as jrender
 from aruco3_tpu import segment as jsegment
 from aruco3_tpu.dictionaries import ARDictionary as JDictionary
-from aruco3_tpu_torch import segment
+from aruco3_tpu_torch import detector, segment
 from aruco3_tpu_torch.ops import coarse_fit as k2
 from aruco3_tpu_torch.ops import frontend as k1
 from aruco3_tpu_torch.ops import refine as k3
@@ -141,14 +141,19 @@ def test_refine_plain_matches_jax(kind, ds):
     v = np.asarray(cand["valid"])
     assert v.any()
     np.testing.assert_array_equal(n(got)[v], np.asarray(ref)[v])
-    # The port's single-call path: candidates, refine_corners, finalize.
-    port = segment.find_quads_from_masks(
-        t(black)[None], k1.plain(t(img[None]), 7, 2, ds)[0], P, 48.0, 24.0, ds,
-        grey=t(img[None]),
+    # The port's masks route (``detect_from_masks`` without the decode):
+    # kernel 2's labels mode, kernel 7, kernel 3 on the near mask of the
+    # opened black mask and finalize, against JAX find_quads_from_masks.
+    quads, valid, stats = detector.candidates(
+        t(img[None]), segment.near_mask(t(black)[None]), k1.plain(t(img[None]), 7, 2, ds)[0],
+        P, 48.0, 24.0, ds, fused=False,
     )
-    np.testing.assert_array_equal(n(port["valid"][0]), np.asarray(found["valid"]))
     fv = np.asarray(found["valid"])
-    np.testing.assert_array_equal(n(port["quads"][0])[fv], np.asarray(found["quads"])[fv])
+    assert fv.any()
+    np.testing.assert_array_equal(n(valid[0]), fv)
+    np.testing.assert_array_equal(n(quads[0])[fv], np.asarray(found["quads"])[fv])
+    for key, val in found["stats"].items():
+        assert int(stats[key][0]) == int(val), key
 
 
 def test_finalize_quads_matches_jax():
