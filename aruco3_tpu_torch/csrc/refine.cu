@@ -27,8 +27,9 @@
 // integer g, a byte compare (__vcmpltu4); the ink of a row becomes a
 // 64-bit column mask (with near, the clamp box and, on inner lanes, one
 // footprint lookup per coarse cell the row crosses), and only its set bits
-// are scored.  Built with -fmad=false so the directions and the score
-// round as the reference's separate multiplies and adds do.
+// are scored.  Built with -fmad=false so the directions round as the
+// reference's separate multiplies and adds do; the score's one fma is
+// explicit (XLA's contraction of x * d0 + y * d1 on the CPU).
 //
 // A chunk is read whole only where it holds a byte of the row inside the
 // image: an aligned 16-byte chunk never crosses an allocation's end
@@ -172,14 +173,17 @@ __device__ __forceinline__ uint64_t clamp_columns(const Win& w, int x0, int n, i
 }
 
 // Scores the ink of window row r (columns c0 + the mask's bits) into the
-// running arg-max: x * d0 + y * d1, the index r * wn + column.
+// running arg-max: fma(x, d0, y * d1) (the reference's x * d0 + y * d1 as
+// XLA on the CPU contracts it; segment.refine_windows), the index
+// r * wn + column.
 __device__ __forceinline__ void score(const Win& w, uint64_t ink, int r, int c0, float& bs,
                                       int& bi) {
   const float yd = static_cast<float>(w.tly + r) * w.d1;
   while (ink) {
     const int c = __ffsll(static_cast<long long>(ink)) - 1;
     ink &= ink - 1;
-    amax_update(static_cast<float>(w.tlx + c0 + c) * w.d0 + yd, r * w.wn + c0 + c, bs, bi);
+    amax_update(__fmaf_rn(static_cast<float>(w.tlx + c0 + c), w.d0, yd), r * w.wn + c0 + c,
+                bs, bi);
   }
 }
 

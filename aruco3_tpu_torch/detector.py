@@ -44,6 +44,10 @@ finalize, then ``decode_tail``.
 
 On a CUDA tensor every kernel stage launches its hand-written kernel; on a
 CPU tensor the same function runs each kernel's plain PyTorch version.
+``Detector.detect_batch`` on the card replays one captured CUDA graph of
+``detect_batch_arrays`` per batch shape (``Detector._compiled``, the JAX
+detector's one compiled program per shape); on the CPU it runs
+``detect_batch_arrays`` eagerly.
 The warps sample with float32 weights where the JAX XLA warp rounds them
 to bfloat16.
 """
@@ -57,6 +61,7 @@ import torch
 
 from . import frontend, rectify, segment
 from .dictionaries import ARDictionary
+from .runtime import graph
 from .ops.coarse_fit import coarse_fit, coarse_labels
 from .ops.fit import fused_fit_batch
 from .ops.frontend import threshold_open_pool
@@ -170,9 +175,15 @@ def tail_route(params: segment.QuadParams, ds: int) -> bool:
     return not (params.refine and ds > 1)
 
 
+# Graphs a Detector keeps (the JAX detector's ``lru_cache(maxsize=32)``).
+GRAPH_CACHE_SIZE = 32
+
+
 class Detector:
     """Runs ``detect_batch_arrays`` on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU); on the card through a captured CUDA graph a
+    batch shape (``_compiled``), all of a detector's graphs in one memory
+    pool."""
 
     def __init__(
         self,
@@ -185,6 +196,30 @@ class Detector:
             "ARUCO_DEFAULT"
         )
         self.device = torch.device(device)
+        self._graphs: graph.GraphCache | None = None
+
+    @property
+    def graphs(self) -> graph.GraphCache:
+        """This detector's graphs on its card (made at first use)."""
+        if self._graphs is None:
+            self._graphs = graph.GraphCache(GRAPH_CACHE_SIZE)
+        return self._graphs
+
+    def _compiled(self, b: int, h: int, w: int, c: int | None = None) -> graph.Graph:
+        """The CUDA graph of ``detect_batch_arrays`` for (b, h, w[, c]) uint8
+        batches on the detector's card, captured at its first use and kept
+        among the ``GRAPH_CACHE_SIZE`` most recently used (the JAX
+        detector's ``_compiled``)."""
+        shape = (b, h, w) if c is None else (b, h, w, c)
+        # The graph keeps its function: a function that held the detector
+        # would make a reference cycle, and the cyclic collector could
+        # then destroy the detector's graphs while another is captured.
+        dictionary, config, geometry = self.dictionary, self.config, self.geometry(h, w)
+
+        def pipeline(images):
+            return detect_batch_arrays(images, dictionary, config, *geometry)
+
+        return self.graphs.get(shape, lambda: pipeline, shape, torch.uint8, self.device)
 
     def geometry(self, height: int, width: int):
         """(params, min_edge, min_sep, ds) for an (height, width) frame."""
@@ -196,8 +231,18 @@ class Detector:
 
     def detect_batch(self, images) -> dict:
         """(B, H, W[, C]) uint8 frames -> dict of batched tensors on the
-        detector's device (see ``detect_batch_arrays``)."""
-        images = torch.as_tensor(images).to(self.device)
+        detector's device (see ``detect_batch_arrays``).  On the card the
+        frames (host or device) are copied into the shape's graph, which is
+        replayed on the current stream; the outputs are fresh tensors and
+        the call does not wait for them."""
+        images = torch.as_tensor(images)
+        if self.device.type == "cuda":
+            if images.dtype != torch.uint8 or images.ndim not in (3, 4):
+                raise ValueError(
+                    f"expected (B, H, W[, C]) uint8 frames, got {tuple(images.shape)} {images.dtype}"
+                )
+            return self._compiled(*images.shape)(images)
+        images = images.to(self.device)
         params, min_edge, min_sep, ds = self.geometry(images.shape[1], images.shape[2])
         return detect_batch_arrays(
             images, self.dictionary, self.config, params, min_edge, min_sep, ds

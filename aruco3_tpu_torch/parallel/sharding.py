@@ -76,32 +76,47 @@ def build_sharded_detect(
 ):
     """A detect(+pose) step for this rank's shard: (b, H, W[, C]) uint8 ->
     dict of batched outputs on the rank's device (``rank_device``), with
-    the quad parameters of ``parallel_geometry``."""
+    the quad parameters of ``parallel_geometry``.  On a card the step
+    replays a CUDA graph of detect(+pose) a shard shape, kept in the
+    detector's graph cache (as the JAX package jits the sharded step); the
+    collectives stay outside it."""
     cfg = detector.config
     dictionary = detector.dictionary
     device = rank_device(group)
     params, min_edge, min_sep, ds = parallel_geometry(cfg, height, width)
     frame_dims = (height, width) if channels == 1 else (height, width, channels)
-    scale = torch.tensor([float(width), float(height)], dtype=torch.float32, device=device)
+
+    def make():
+        scale = torch.tensor([float(width), float(height)], dtype=torch.float32, device=device)
+
+        def local_step(frames):
+            """Runs on this rank over its local frame shard."""
+            out = detect_batch_arrays(frames, dictionary, cfg, params, min_edge, min_sep, ds)
+            res = {k: out[k] for k in OUTPUT_KEYS}
+            if with_pose:
+                # Normalize per axis by the image dims (reference pose.rs:59-62)
+                # and solve IPPE for every candidate lane (masked lanes produce
+                # garbage poses that carry marker_valid=False).
+                rot, tr, err = pose_mod.solve_normalized_batch(
+                    out["marker_corners"] / scale, marker_size_mm
+                )
+                res["pose_rotations"] = rot
+                res["pose_translations"] = tr
+                res["pose_errors"] = err
+            return res
+
+        return local_step
+
+    eager = make() if device.type != "cuda" else None
 
     def step(frames):
-        """Runs on this rank over its local frame shard."""
-        frames = torch.as_tensor(frames).to(device)
+        frames = torch.as_tensor(frames)
         if tuple(frames.shape[1:]) != frame_dims:
             raise ValueError(f"frames {tuple(frames.shape)}, step built for (b, {frame_dims})")
-        out = detect_batch_arrays(frames, dictionary, cfg, params, min_edge, min_sep, ds)
-        res = {k: out[k] for k in OUTPUT_KEYS}
-        if with_pose:
-            # Normalize per axis by the image dims (reference pose.rs:59-62)
-            # and solve IPPE for every candidate lane (masked lanes produce
-            # garbage poses that carry marker_valid=False).
-            rot, tr, err = pose_mod.solve_normalized_batch(
-                out["marker_corners"] / scale, marker_size_mm
-            )
-            res["pose_rotations"] = rot
-            res["pose_translations"] = tr
-            res["pose_errors"] = err
-        return res
+        if eager is not None:
+            return eager(frames.to(device))
+        key = ("sharded", tuple(frames.shape), with_pose, marker_size_mm, str(device))
+        return detector.graphs.get(key, make, frames.shape, frames.dtype, device)(frames)
 
     return step
 

@@ -11,8 +11,11 @@ The 3x3-matrix helpers below it keep the reference-shaped API.
 
 from __future__ import annotations
 
+import functools
+import numbers
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .camera import CameraIntrinsics
@@ -78,14 +81,34 @@ def make_marker_square(marker_size_mm) -> torch.Tensor:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def marker_square_on(marker_size_mm: float, device: torch.device) -> torch.Tensor:
+    """``make_marker_square(marker_size_mm)`` on ``device``, built once per
+    size and device."""
+    return make_marker_square(marker_size_mm).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _flip_z(device: torch.device) -> torch.Tensor:
+    """diag(1, 1, -1) on ``device``, built once per device."""
+    return torch.diag(torch.tensor([1.0, 1.0, -1.0])).to(device)
+
+
 def compute_homography_from_marker_square(
     marker_size_mm, target_points: torch.Tensor
 ) -> torch.Tensor:
     """Closed-form homography (H[2,2] = 1) from the canonical square to
-    (..., 4, 2) normalized image points."""
+    (..., 4, 2) normalized image points.  A marker size given as a number
+    stays on the host (no tensor is built from it); a tensor is moved to
+    the points' device."""
     tp = target_points.to(torch.float32)
-    hw = 0.5 * _f32(marker_size_mm).to(tp.device)
-    hw = torch.broadcast_to(hw, tp.shape[:-2])
+    if isinstance(marker_size_mm, numbers.Real):
+        # 1 / (2 * hw) with hw = 0.5 * size: float32 1 / size, as the tensor
+        # path rounds it.
+        inv2 = float(np.float32(1.0) / np.float32(marker_size_mm))
+    else:
+        hw = torch.broadcast_to(0.5 * _f32(marker_size_mm).to(tp.device), tp.shape[:-2])
+        inv2 = 1.0 / (2.0 * hw)
     u0, u1, u2, u3 = (tp[..., i, 0] for i in range(4))
     v0, v1, v2, v3 = (tp[..., i, 1] for i in range(4))
     d1u, d1v = u1 - u2, v1 - v2
@@ -100,7 +123,6 @@ def compute_homography_from_marker_square(
     a12 = u3 - u0 + hh * u3
     a21 = v1 - v0 + g * v1
     a22 = v3 - v0 + hh * v3
-    inv2 = 1.0 / (2.0 * hw)
     h00 = a11 * inv2
     h01 = -a12 * inv2
     h02 = 0.5 * (a11 + a12) + u0
@@ -138,7 +160,7 @@ def find_rotation_to_z(vec) -> torch.Tensor:
         ],
         dim=-1,
     ).reshape(v.shape[:-1] + (3, 3))
-    flip = torch.diag(torch.tensor([1.0, 1.0, -1.0])).expand(r.shape)
+    flip = _flip_z(v.device).expand(r.shape)
     return torch.where(degenerate[..., None, None], flip, r)
 
 
@@ -365,7 +387,10 @@ def solve_normalized_batch(normalized_image_points, marker_size_mm):
     errors (..., 2)).
     """
     pts = torch.as_tensor(normalized_image_points, dtype=torch.float32)
-    obj = make_marker_square(marker_size_mm).to(pts.device)
+    if isinstance(marker_size_mm, numbers.Real):
+        obj = marker_square_on(float(marker_size_mm), pts.device)
+    else:
+        obj = make_marker_square(_f32(marker_size_mm).to(pts.device))
     obj = torch.broadcast_to(obj, pts.shape[:-2] + (4, 3))
     homography = compute_homography_from_marker_square(marker_size_mm, pts)
     rotations, translations, errors = solve_canonical_form(obj, pts, homography)

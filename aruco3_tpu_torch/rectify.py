@@ -485,18 +485,18 @@ def _grid_tail(grid: torch.Tensor, mark_size: int):
     return bits, valid
 
 
+@functools.lru_cache(maxsize=None)
+def code_word_weights(num_bits: int, device: torch.device) -> torch.Tensor:
+    """(2, num_bits) int64 weights of ``bits_to_u32_pairs`` on ``device``,
+    built once per device: bit i weighs 2^(i % 32) in word i // 32."""
+    idx = np.arange(num_bits)
+    w = np.stack([np.where(idx < 32, 1 << (idx % 32), 0), np.where(idx >= 32, 1 << (idx % 32), 0)])
+    return torch.from_numpy(w.astype(np.int64)).to(device)
+
+
 def bits_to_u32_pairs(bits: torch.Tensor) -> torch.Tensor:
     """(..., num_bits) {0,1} -> (..., 2) int64 holding the (lo, hi) uint32
     code words."""
-    nb = bits.shape[-1]
-    idx = np.arange(nb)
-    lo_w = torch.tensor(
-        np.where(idx < 32, 1 << (idx % 32), 0), dtype=torch.int64,
-        device=bits.device,
-    )
-    hi_w = torch.tensor(
-        np.where(idx >= 32, 1 << (idx % 32), 0), dtype=torch.int64,
-        device=bits.device,
-    )
+    lo_w, hi_w = code_word_weights(bits.shape[-1], bits.device)
     b = bits.to(torch.int64)
     return torch.stack([(b * lo_w).sum(-1), (b * hi_w).sum(-1)], dim=-1)

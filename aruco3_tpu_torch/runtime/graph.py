@@ -1,0 +1,213 @@
+"""One captured CUDA graph per input shape: the port's counterpart of
+``jax.jit`` for a function of one fixed-shape device tensor.
+
+``Graph`` runs the function once on a side stream over a zero input of
+the graph's shape (the warm-up: it builds the kernels and fills the lazy
+device tables, such as kernel 4's tap table and the codebooks), then
+captures it with ``torch.cuda.graph``.  The graph reads those tables where
+they lie, so they must outlive it: the port caches them for the life of
+the process, and a ``Graph`` keeps its function (and what that closes
+over, such as a pose step's scale).  A call
+copies its argument into the graph's static input on the current stream,
+replays the graph there and clones every output on the same stream, so
+each call returns fresh tensors, as a JAX call does:
+
+* the copy of call N+1 is ordered after replay N, which may still be
+  reading the static input;
+* replay N+1 overwrites the static outputs only after call N's clones.
+
+A capture that fails raises, naming the operation it stopped at; there is
+no eager fallback.  Kernel launch counts (``ops.counters``) stay counts
+of kernels launched on the card: the increments the wrappers made while
+the graph was captured are taken back and added again on every replay.
+
+``GraphCache`` keeps at most ``maxsize`` graphs, least recently used out
+first, sharing one memory pool: replays run one after another on one
+stream and their outputs are cloned out before the next replay, so no two
+graphs' intermediates are live at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import gc
+import time
+from collections import OrderedDict
+from typing import Callable
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from .. import ops
+
+# cuGraphNodeGetType's CU_GRAPH_NODE_TYPE_KERNEL; cuStreamIsCapturing's
+# CU_STREAM_CAPTURE_STATUS_ACTIVE.
+_KERNEL_NODE = 0
+_CAPTURE_ACTIVE = 1
+
+
+class _CaptureWatch(TorchDispatchMode):
+    """Names the aten operation a failed capture stopped at: the first one
+    after which the stream is no longer capturing (an operation the
+    capture refused invalidates it without raising), else the last one
+    dispatched."""
+
+    def __init__(self):
+        super().__init__()
+        self.last = "none"
+        self.culprit = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.last = str(func)
+        out = func(*args, **(kwargs or {}))
+        if self.culprit is None and _capture_status() != _CAPTURE_ACTIVE:
+            self.culprit = self.last
+        return out
+
+
+@functools.lru_cache(maxsize=1)
+def _libcuda() -> ctypes.CDLL:
+    return ctypes.CDLL("libcuda.so.1")
+
+
+def _capture_status() -> int:
+    """The current stream's capture status (libcuda ``cuStreamIsCapturing``:
+    0 none, 1 active, 2 invalidated)."""
+    status = ctypes.c_int(0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if _libcuda().cuStreamIsCapturing(stream, ctypes.byref(status)) != 0:
+        raise RuntimeError("cuStreamIsCapturing failed")
+    return status.value
+
+
+def _clone(tree):
+    """Fresh copies of the tensors in nested dicts, tuples and lists."""
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+def kernel_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """Kernel nodes of a graph captured with ``keep_graph=True`` (libcuda
+    API ``cuGraphGetNodes``)."""
+    cuda = _libcuda()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = ctypes.c_int(0)
+    n = 0
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kinds)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        n += kinds.value == _KERNEL_NODE
+    return n
+
+
+class Graph:
+    """``fn`` captured for inputs of ``shape`` and ``dtype`` on the CUDA
+    device ``device``.
+
+    ``capture_ms`` is the host time of the capture and instantiation (the
+    warm-up left out), ``pool_bytes`` what the memory pool grew by during
+    it, ``kernel_nodes`` the graph's kernel nodes."""
+
+    def __init__(self, fn: Callable, shape, dtype: torch.dtype, device, pool=None):
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph runs on a CUDA device, not {dev}")
+        self.fn = fn
+        with torch.cuda.device(dev):
+            self.input = torch.zeros(tuple(shape), dtype=dtype, device=dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fn(self.input)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+
+            before = {id(c): c.launches for c in ops.counters()}
+            torch.cuda.empty_cache()  # as the capture does first
+            reserved = torch.cuda.memory_reserved(dev)
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            watch = _CaptureWatch()
+            t0 = time.perf_counter()
+            # No collection during the capture: a graph that the cyclic
+            # collector destroyed now (cudaGraphExecDestroy) would
+            # invalidate it.
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                    with watch:
+                        self.outputs = fn(self.input)
+            except Exception as e:
+                raise RuntimeError(
+                    f"CUDA graph capture on input {tuple(shape)} {dtype} failed at "
+                    f"{watch.culprit or watch.last}: {e}"
+                ) from e
+            finally:
+                if collecting:
+                    gc.enable()
+            self.kernel_nodes = kernel_nodes(self.graph)
+            self.graph.instantiate()
+            self.capture_ms = 1e3 * (time.perf_counter() - t0)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.launches = []
+        for c in ops.counters():
+            n = c.launches - before.get(id(c), 0)
+            if n:
+                c.launches -= n  # captured, not launched
+                self.launches.append((c, n))
+
+    def fresh(self):
+        """Clones of the static outputs on the current stream."""
+        return _clone(self.outputs)
+
+    def __call__(self, x: torch.Tensor):
+        """Copy ``x`` in, replay, return fresh outputs (all on the current
+        stream of the graph's device; no host sync unless ``x`` is a host
+        tensor)."""
+        if x.shape != self.input.shape or x.dtype != self.input.dtype:
+            raise ValueError(
+                f"graph captured for {tuple(self.input.shape)} {self.input.dtype}, "
+                f"got {tuple(x.shape)} {x.dtype}"
+            )
+        with torch.cuda.device(self.input.device):
+            self.input.copy_(x, non_blocking=x.is_cuda)
+            self.graph.replay()
+            for c, n in self.launches:
+                c.launches += n
+            return self.fresh()
+
+
+class GraphCache:
+    """At most ``maxsize`` ``Graph``s by key, least recently used out first,
+    all in one memory pool."""
+
+    def __init__(self, maxsize: int = 32):
+        self.maxsize = maxsize
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: OrderedDict = OrderedDict()
+
+    def get(self, key, make: Callable[[], Callable], shape, dtype, device) -> Graph:
+        """The graph of ``key``; where the cache does not hold it, the
+        function ``make()`` returns, captured for (``shape``, ``dtype``,
+        ``device``).  ``make`` runs once per capture, so the device
+        constants it builds are built once per graph."""
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = Graph(make(), shape, dtype, device, self.pool)
+            while len(self.graphs) > self.maxsize:
+                self.graphs.popitem(last=False)
+        else:
+            self.graphs.move_to_end(key)
+        return g

@@ -294,9 +294,10 @@ class StreamPipeline:
     tensors on its device, plus provenance) arrive on ``results`` as dicts.
     Double-buffered: batch N+1 assembles on the host while batch N runs on
     the card.  On the card each batch goes through one of two pinned host
-    buffers and a side CUDA stream; its outputs carry ``done``, the CUDA
-    event recorded after the batch's last launch.  An exception of the
-    worker is raised again by ``stop``.
+    buffers and a side CUDA stream, then replays the detector's CUDA graph
+    of its shape on the compute stream; its outputs carry ``done``, the
+    CUDA event recorded after the graph's output clones.  An exception of
+    the worker is raised again by ``stop``.
     """
 
     def __init__(
@@ -368,6 +369,10 @@ class StreamPipeline:
             compute = torch.cuda.current_stream(dev)
             compute.wait_event(copied)
             batch.record_stream(compute)
+            # The graph's own copy of ``batch`` into its static input runs on
+            # the compute stream, after the previous batch's replay (which
+            # may still read that input); its outputs are clones, so the next
+            # replay leaves them alone.
             out = self.detector.detect_batch(batch)
             done = torch.cuda.Event()
             done.record(compute)

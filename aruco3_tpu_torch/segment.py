@@ -592,7 +592,14 @@ def refine_windows(
         torch.abs(yy - quads[..., 1, None, None]) <= clamp_r
     )
     ok = ink & near_corner
-    score = xx * dirs[..., 0, None, None] + yy * dirs[..., 1, None, None]
+    # XLA on the CPU contracts the reference's x * d0 + y * d1 into
+    # fma(x, d0, y * d1), and a corner on an exact diagonal is a tie that
+    # only this rounding breaks (kernel 3 calls the fma).  x * d0, an
+    # integer times a float32, is exact in float64, and so is the sum
+    # unless one term is below 2^-16 of the other: it rounds once to
+    # float32, as the fma does.
+    yd = yy * dirs[..., 1, None, None]
+    score = (xx.double() * dirs[..., 0, None, None].double() + yd.double()).float()
     neg = torch.full((), float("-inf"), device=dev)
     score = torch.where(ok, score, neg).flatten(-2)
     best = torch.argmax(score, dim=-1)
@@ -611,7 +618,7 @@ def enforce_clockwise(quads: torch.Tensor) -> torch.Tensor:
     d1 = quads[..., 1, :] - quads[..., 0, :]
     d2 = quads[..., 2, :] - quads[..., 0, :]
     cross = d1[..., 0] * d2[..., 1] - d1[..., 1] * d2[..., 0]
-    swapped = quads[..., [0, 3, 2, 1], :]
+    swapped = torch.cat([quads[..., :1, :], quads[..., 1:, :].flip(-2)], dim=-2)  # 0, 3, 2, 1
     return torch.where((cross < 0)[..., None, None], swapped, quads)
 
 

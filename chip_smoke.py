@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
 
-Five paths, each ``Detector.detect_batch`` + ``pose.solve_normalized_batch``.
-Three take the refine route (corner refinement, kernel 4's warp):
+Five paths, each ``detect_batch_arrays`` + ``pose.solve_normalized_batch``
+captured as one CUDA graph a batch shape (``pose_graph``, in the detector's
+graph cache: the counterpart of bench.py's ``jax.jit(batch_fn)``), beside
+the same function run eagerly (``pose_step``).  Three take the refine
+route (corner refinement, kernel 4's warp):
 
 * landscape: the 8-marker 1080p bench frame (1080x1920 u8,
   ``ARUCO_MIP_36H12``, ``DetectorConfig()``): ds 10, a 108x192 grid, the
@@ -38,16 +41,23 @@ Phases, each printing lines of numbers:
    cluster size of kernel 5 and the lane group of kernel 6 per plane.
    Kernel 8 also decodes its samples and those of its plain version into
    the same cell grids;
-4. paths: each path driven once, every launch count set to 0 just before
-   and read just after: every kernel of the path launched, no other and no
-   plain version called.  Landscape and portrait on 16 frames: every
+4. paths: each path's graph captured, then replayed once with every
+   launch count set to 0 just before and read just after: every kernel of
+   the path launched, no other and no plain version called; the graph's
+   outputs equal to the eager path's on the same frames (integers and
+   booleans bit-equal, floats with a max abs difference of 0.0, NaN where
+   NaN).  Landscape and portrait on 16 frames: every
    ground-truth marker within 2 px with a finite pose.  Dense on 4 frames,
    noref and small on 16: frame 0 equal to the port's CPU path (ids,
    codes, rounded corners, stats); noref every marker within 12 px (its
    corners are the coarse fit's, ~ds px), small its marker within 2 px;
 5. timing: detect + pose in frames/s (landscape, portrait and noref at
-   batch 128, dense at 16, small at 512) with the device time per batch
-   by kernel (``torch.profiler``) beside it; each kernel of the path alone
+   batch 128, dense at 16, small at 512), eager and graphed in turns
+   (eager, graph, graph, eager); the graph's capture ms, kernel nodes,
+   pool growth and output clone ms; device ms, idle share and
+   host-to-device copies per batch of both (``torch.profiler``), the
+   graphed batch's device time by kernel; fails if a graphed batch makes a
+   host-to-device copy or is slower than the eager one; each kernel of the path alone
    on that batch (device time, profiler) beside its bound there; each
    kernel against its plain version at its path's phase-3 shapes (CUDA
    events after warm-up, and the kernel's device time alone; kernels 3
@@ -69,9 +79,11 @@ Phases 6-10 drive the other entry points, each once:
    every lane equal to ``detect_batch``, then three 3-second windows with
    the rings kept full (lanes checked too), frames/s counted from the
    first completed batch, host ms per batch in each hook, beside
-   ``detect_batch`` alone at batch 8 (event and device ms);
-8. sharded: ``detect_sharded`` with pose at NCCL world size 1, equal to
-   ``detect_batch`` + ``solve_normalized_batch`` (integers and poses);
+   ``detect_batch`` alone at batch 8 (its graph: event and device ms;
+   eager: event ms);
+8. sharded: ``detect_sharded`` with pose at NCCL world size 1 (the step's
+   own graph), equal to the batch's graph of detect + pose (integers and
+   poses);
 9. spatial: ``detect_spatial`` at NCCL world size 1, and the frame as 4
    row bands in this process through ``detect_from_masks``: ids of
    ``Detector.detect``, corners within 1 px, kernels 2 (labels), 7, 3
@@ -547,16 +559,72 @@ def bound(bytes_: int, ops: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def detect_and_pose(det, frames):
+def pose_step(det, h, w):
+    """Eager detect + pose of (B, h, w) frames: ``detect_batch_arrays``,
+    then ``pose.solve_normalized_batch`` of the corners over the frame's
+    size (the JAX bench's ``batch_fn``).  The scale is built here, once."""
     import torch
 
     from aruco3_tpu_torch import pose
+    from aruco3_tpu_torch.detector import detect_batch_arrays
 
-    out = det.detect_batch(frames)
-    h, w = frames.shape[1:]
-    scale = torch.tensor([float(w), float(h)], device=frames.device)
-    rot, tr, err = pose.solve_normalized_batch(out["marker_corners"] / scale, MARKER_MM)
-    return out, rot, tr, err
+    dictionary, config, geometry = det.dictionary, det.config, det.geometry(h, w)
+    scale = torch.tensor([float(w), float(h)], device=det.device)
+
+    def step(frames):  # holds no detector: its graph would make a cycle
+        out = detect_batch_arrays(frames, dictionary, config, *geometry)
+        rot, tr, err = pose.solve_normalized_batch(out["marker_corners"] / scale, MARKER_MM)
+        return out, rot, tr, err
+
+    return step
+
+
+def pose_graph(det, shape):
+    """The CUDA graph of ``pose_step`` for (B, H, W) uint8 batches of
+    ``shape``, in the detector's graph cache: the counterpart of bench.py's
+    ``jax.jit(batch_fn)``."""
+    import torch
+
+    shape = tuple(shape)
+    return det.graphs.get(("detect_and_pose",) + shape, lambda: pose_step(det, *shape[1:]),
+                          shape, torch.uint8, det.device)
+
+
+def tensors(tree):
+    """The tensors of nested dicts and tuples, in a fixed order, by path."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return [("", tree)]
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    else:
+        items = list(enumerate(tree))
+    return [(f"{k}/{p}".rstrip("/"), t) for k, v in items for p, t in tensors(v)]
+
+
+def graph_vs_eager(path, got, ref) -> None:
+    """Graphed outputs against the eager ones on the same frames: integer
+    and boolean tensors bit-equal, float tensors equal (NaN where the other
+    has NaN, and a max abs difference of 0.0 elsewhere): the same kernels
+    in the same order."""
+    import torch
+
+    a, b = tensors(got), tensors(ref)
+    require([k for k, _ in a] == [k for k, _ in b], f"{path}: graphed outputs differ in keys")
+    mism, worst = 0, 0.0
+    for (key, x), (_, y) in zip(a, b):
+        require(x.shape == y.shape and x.dtype == y.dtype, f"{path}: {key} differs in shape or type")
+        if x.is_floating_point():
+            nan_x, nan_y = torch.isnan(x), torch.isnan(y)
+            mism += mismatches(nan_x, nan_y)
+            ok = ~(nan_x | nan_y)
+            if ok.any():
+                worst = max(worst, float((x[ok] - y[ok]).abs().max()))
+        else:
+            mism += mismatches(x, y)
+    log(f"path {path} graph vs eager", tensors=len(a), mismatches=mism, float_max_abs_diff=worst)
+    require(mism == 0 and worst == 0.0, f"{path}: graphed outputs differ from eager ones")
 
 
 def check_markers(out, tr, truth, tol=2.0) -> float:
@@ -581,14 +649,17 @@ def check_markers(out, tr, truth, tol=2.0) -> float:
 
 
 def drive(path, det, frames, kernels_of_path):
-    """Phase 4: one run of the path with every count set to 0 just before
-    and read just after; returns (out, tr, launches)."""
+    """Phase 4: one run of the path's graph (captured before) with every
+    count set to 0 just before and read just after, then its outputs
+    against the eager path's on the same frames; returns (out, tr,
+    launches)."""
     import torch
 
+    g = pose_graph(det, frames.shape)
     counts = counters()
     for c in counts.values():
         c.reset()
-    out, _, tr, _ = detect_and_pose(det, frames)
+    got = g(frames)
     torch.cuda.synchronize()
     launches = {name: c.launches for name, c in counts.items()}
     plains = {name: c.plain_calls for name, c in counts.items()}
@@ -600,6 +671,8 @@ def drive(path, det, frames, kernels_of_path):
         else:
             require(n == 0, f"{path}: kernel {name} is not on this path but was launched")
     require(all(v == 0 for v in plains.values()), f"{path}: a plain version ran")
+    graph_vs_eager(path, got, pose_step(det, *frames.shape[1:])(frames))
+    out, _, tr, _ = got
     return out, tr, launches
 
 
@@ -690,34 +763,68 @@ def tail_timing(det, frames, card, small_args) -> None:
         kernel4_ms=round(k4_ms, 4))
 
 
-def profile_path(path, det, frames, ms_per_batch, reps=3) -> None:
-    """Device time per batch by kernel (torch.profiler over ``reps``
-    batches after warm-up) against the CUDA-event time per batch, and the
-    batch's host-to-device copies (each one a CUDA graph cannot capture
-    from pageable memory)."""
+def profile_run(fn, reps=3) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: device
+    ms, device operations and host-to-device copies per call (each such
+    copy from pageable memory is one a CUDA graph cannot capture), and the
+    16 largest kernel names by device ms per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    detect_and_pose(det, frames)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            detect_and_pose(det, frames)
+            fn()
         torch.cuda.synchronize()
     avg = prof.key_averages()
     dev = [e for e in avg if str(e.device_type).endswith("CUDA")]
-    device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / reps
-    log("profile", path=path, batch=frames.shape[0], device_ms_per_batch=round(device_ms, 3),
-        ms_per_batch=round(ms_per_batch, 3),
-        device_idle_share=round(1.0 - device_ms / ms_per_batch, 3),
-        device_ops_per_batch=round(sum(e.count for e in dev) / reps, 1),
-        htod_copies_per_batch=sum(e.count for e in avg if "HtoD" in e.key) / reps)
     by_name = {}
     for e in dev:  # names cut to 60 characters; templated ones share a prefix
         by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + e.self_device_time_total / 1e3 / reps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
-    print(json.dumps({"profile_top": path,
-                      "device_ms_per_batch": {k: round(v, 4) for k, v in top}}), flush=True)
+    return {"device_ms": sum(e.self_device_time_total for e in dev) / 1e3 / reps,
+            "device_ops": sum(e.count for e in dev) / reps,
+            "htod": sum(e.count for e in avg if "HtoD" in e.key) / reps,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:16]}
+
+
+def path_timing(path, det, big, card) -> None:
+    """Phase 5 for one path: detect + pose at its batch, eager and through
+    its graph, CUDA-event ms per batch in turns (eager, graph, graph,
+    eager); the graph's capture ms, kernel nodes and pool growth; the
+    clone of its outputs alone; device ms, idle share, device operations
+    and host-to-device copies per batch of each (torch.profiler).  Fails
+    if the graph is slower than the eager path."""
+    reps = 5 if big.shape[0] > 16 else 3
+    eager = pose_step(det, *big.shape[1:])
+    g = pose_graph(det, big.shape)
+    e1 = cuda_ms(lambda: eager(big), reps)
+    g1 = cuda_ms(lambda: g(big), reps)
+    g2 = cuda_ms(lambda: g(big), reps)
+    e2 = cuda_ms(lambda: eager(big), reps)
+    ms, eager_ms = (g1 + g2) / 2, (e1 + e2) / 2
+    batch = big.shape[0]
+    log("timing", path=path, card=repr(card), batch=batch, ms_per_batch=round(ms, 3),
+        frames_per_s=round(batch * 1000.0 / ms, 1), eager_ms_per_batch=round(eager_ms, 3),
+        eager_frames_per_s=round(batch * 1000.0 / eager_ms, 1),
+        graph_ms_runs=[round(g1, 3), round(g2, 3)], eager_ms_runs=[round(e1, 3), round(e2, 3)])
+    clone_ms = cuda_ms(g.fresh, reps)
+    gp = profile_run(lambda: g(big))
+    ep = profile_run(lambda: eager(big))
+    log("graph", path=path, card=repr(card), batch=batch, eager_event_ms=round(eager_ms, 3),
+        capture_ms=round(g.capture_ms, 1), kernel_nodes=g.kernel_nodes,
+        pool_mb=round(g.pool_bytes / 2**20, 1), replay_event_ms=round(ms, 3),
+        device_ms=round(gp["device_ms"], 3), idle_share=round(1.0 - gp["device_ms"] / ms, 3),
+        device_ops_per_batch=round(gp["device_ops"], 1), htod_copies_per_batch=gp["htod"],
+        clone_ms=round(clone_ms, 4), output_mb=round(nbytes(g.outputs) / 2**20, 1),
+        eager_device_ms=round(ep["device_ms"], 3),
+        eager_idle_share=round(1.0 - ep["device_ms"] / eager_ms, 3),
+        eager_device_ops_per_batch=round(ep["device_ops"], 1),
+        eager_htod_copies_per_batch=ep["htod"])
+    print(json.dumps({"profile_top": path, "device_ms_per_batch": {
+        k: round(v, 4) for k, v in gp["top"]}}), flush=True)
+    require(gp["htod"] == 0, f"{path}: {gp['htod']} host-to-device copies a graphed batch")
+    require(ms <= eager_ms, f"{path}: the graph ({ms:.3f} ms) is slower than eager ({eager_ms:.3f} ms)")
 
 
 def batch_kernel_timing(path, det, frames, card) -> dict:
@@ -1036,16 +1143,22 @@ def stream_phase(det, frames, card) -> None:
     32 frames, every lane against ``detect_batch``; then STREAM_REPEATS
     rate windows of STREAM_WINDOW_S seconds each with the rings kept full
     (their lanes checked too), beside ``detect_batch`` alone at batch 8
-    on frames already on the card: its event time (host launch loop
-    included) and its device time (kernels only)."""
+    on frames already on the card: its event time (the graph's copy,
+    replay and clones) and its device time, and the eager
+    ``detect_batch_arrays``'s event time (host launch loop included)."""
     import statistics
 
     import torch
+
+    from aruco3_tpu_torch.detector import detect_batch_arrays
 
     ref = det.detect_batch(torch.from_numpy(frames).cuda())
     b8 = torch.from_numpy(np.concatenate([frames, frames])).cuda()
     batch_ms = cuda_ms(lambda: det.detect_batch(b8), reps=10)
     batch_device_ms = device_ms(lambda: det.detect_batch(b8), reps=10)
+    geometry = det.geometry(*b8.shape[1:])
+    eager_ms = cuda_ms(lambda: detect_batch_arrays(b8, det.dictionary, det.config, *geometry),
+                       reps=10)
     del b8
     lanes = stream_check(det, frames, ref)
     log("stream check", streams=STREAMS, batch=STREAM_BATCH, frames=STREAM_FRAMES,
@@ -1062,19 +1175,20 @@ def stream_phase(det, frames, card) -> None:
         frames_per_s_min=round(min(rates), 1), frames_per_s_max=round(max(rates), 1),
         spread=round((max(rates) - min(rates)) / med, 3),
         ms_per_batch_median=round(1e3 * STREAM_BATCH / med, 3),
-        detect_batch_event_ms=round(batch_ms, 3), detect_batch_device_ms=round(batch_device_ms, 3))
+        detect_batch_event_ms=round(batch_ms, 3), detect_batch_device_ms=round(batch_device_ms, 3),
+        detect_batch_eager_event_ms=round(eager_ms, 3))
 
 
 def sharded_phase(det, frames) -> None:
-    """Phase 8: ``detect_sharded`` with pose at NCCL world size 1 against
-    ``detect_batch`` + ``solve_normalized_batch`` of the same batch."""
+    """Phase 8: ``detect_sharded`` with pose at NCCL world size 1 (its own
+    graph of detect + pose) against the batch's ``pose_graph``."""
     import torch
 
     from aruco3_tpu_torch.parallel import sharding
 
     batch = torch.from_numpy(frames).cuda()
     got = sharding.detect_sharded(det, batch, with_pose=True)
-    out, rot, tr, err = detect_and_pose(det, batch)
+    out, rot, tr, err = pose_graph(det, batch.shape)(batch)
     ref = dict(out, pose_rotations=rot, pose_translations=tr, pose_errors=err)
     valid = ref["marker_valid"]
     mism = {k: mismatches(got[k], ref[k]) for k in ("marker_valid", "marker_id", "marker_dist",
@@ -1314,10 +1428,7 @@ def run(reference) -> int:
         big = torch.from_numpy(np.ascontiguousarray(
             np.broadcast_to(frames[0], (batch,) + frames.shape[1:])
         )).cuda()
-        ms = cuda_ms(lambda: detect_and_pose(d, big), reps=5 if batch > 16 else 3)
-        log("timing", path=path, card=repr(card), batch=batch, ms_per_batch=round(ms, 3),
-            frames_per_s=round(batch * 1000.0 / ms, 1))
-        profile_path(path, d, big, ms)
+        path_timing(path, d, big, card)
         at_batch[path] = batch_kernel_timing(path, d, big, card)
         if path == "portrait":
             route_timing(d, big, card)

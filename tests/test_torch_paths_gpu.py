@@ -103,3 +103,168 @@ def test_stream_pipeline_on_card():
             f = (int(s) + int(seq)) % 4
             for key in ("marker_valid", "marker_id", "marker_corners"):
                 assert torch.equal(out[key][lane], ref[key][f]), key
+
+
+# --- Detector.detect_batch through its CUDA graph (runtime.graph) ---------
+
+# (config, frame (w, h), transpose): every route of ``detect_batch_arrays``.
+ROUTES = {
+    "fused": (DetectorConfig(), (320, 240), False),
+    "labels": (DetectorConfig(), (320, 240), True),  # portrait 240x320: kernel 7
+    "labels_k5_k6": (DetectorConfig(max_candidates=160), (320, 240), False),
+    "tail_noref": (DetectorConfig(refine_corners=False), (320, 240), False),
+    "tail_gather": (DetectorConfig(refine_corners=False, warp_impl="gather"), (320, 240), False),
+    "tail_ds1": (DetectorConfig(), (160, 120), False),
+}
+
+
+def _frames(w, h, transpose, kinds=KINDS):
+    imgs = [make_scene(k, w, h, w / 320)[0] for k in kinds]
+    if transpose:
+        imgs = [np.ascontiguousarray(i.T) for i in imgs]
+    return torch.from_numpy(np.stack(imgs))
+
+
+def _assert_same(got, ref):
+    """Every tensor equal: integers and booleans bit for bit, floats too
+    (NaN where NaN)."""
+    assert sorted(got) == sorted(ref)
+    for key in ref:
+        if isinstance(ref[key], dict):
+            _assert_same(got[key], ref[key])
+        else:
+            torch.testing.assert_close(got[key], ref[key], rtol=0, atol=0, equal_nan=True,
+                                       msg=key)
+
+
+def _eager(det, frames):
+    from aruco3_tpu_torch.detector import detect_batch_arrays
+
+    return detect_batch_arrays(frames, det.dictionary, det.config, *det.geometry(*frames.shape[1:3]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_detect_batch_graph_equals_eager(route):
+    """The graphed ``detect_batch`` on each route equals eager
+    ``detect_batch_arrays`` bit for bit, and a replay adds the launches
+    the capture recorded (no plain version)."""
+    from aruco3_tpu_torch import ops
+
+    dev = cuda_device()
+    cfg, (w, h), transpose = ROUTES[route]
+    det = Detector(cfg, ARDictionary.new_from_named_dict("ARUCO_DEFAULT"), device=dev)
+    frames = _frames(w, h, transpose).to(dev)
+    det.detect_batch(frames)  # captures
+    for c in ops.counters():
+        c.reset()
+    ref = _eager(det, frames)
+    torch.cuda.synchronize()
+    eager_counts = [c.launches for c in ops.counters()]
+    for c in ops.counters():
+        c.reset()
+    got = det.detect_batch(frames)
+    torch.cuda.synchronize()
+    assert [c.launches for c in ops.counters()] == eager_counts
+    assert sum(eager_counts) > 0 and all(c.plain_calls == 0 for c in ops.counters())
+    _assert_same(got, ref)
+    assert list(det.graphs.graphs) == [tuple(frames.shape)]
+
+
+@pytest.mark.gpu
+def test_graph_outputs_are_fresh_and_shapes_alternate():
+    """Call N's outputs stay as they were after call N+1 on other frames;
+    two shapes alternated through one detector stay equal to eager."""
+    dev = cuda_device()
+    det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict("ARUCO_DEFAULT"),
+                   device=dev)
+    a = _frames(320, 240, False, ("single", "multi")).to(dev)
+    b = _frames(320, 240, False, ("dark", "nested")).to(dev)
+    c = _frames(160, 120, False).to(dev)
+    out_a = det.detect_batch(a)
+    ref_a = _eager(det, a)
+    out_b = det.detect_batch(b)
+    torch.cuda.synchronize()
+    _assert_same(out_a, ref_a)
+    _assert_same(out_b, _eager(det, b))
+    for frames in (c, a, c, b):
+        _assert_same(det.detect_batch(frames), _eager(det, frames))
+    assert set(det.graphs.graphs) == {tuple(a.shape), tuple(c.shape)}
+
+
+@pytest.mark.gpu
+def test_graph_cache_keeps_the_most_recent(monkeypatch):
+    """At most ``GRAPH_CACHE_SIZE`` graphs, the least recently used out."""
+    from aruco3_tpu_torch import detector
+
+    dev = cuda_device()
+    monkeypatch.setattr(detector, "GRAPH_CACHE_SIZE", 2)
+    det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict("ARUCO_DEFAULT"),
+                   device=dev)
+    frames = _frames(160, 120, False).to(dev)
+    for b in (1, 2, 1, 3):
+        _assert_same(det.detect_batch(frames[:b]), _eager(det, frames[:b]))
+    assert [k[0] for k in det.graphs.graphs] == [1, 3]
+
+
+@pytest.mark.gpu
+def test_detect_single_frame_equals_eager():
+    dev = cuda_device()
+    d = ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
+    det = Detector(DetectorConfig(), d, device=dev)
+    img, ids = make_scene("multi")
+    got = det.detect(img)
+    ref = to_host(_eager(det, torch.from_numpy(img)[None].to(dev)), 0)
+    assert _summary(got) == _summary(ref)
+    assert got.candidates == ref.candidates
+    assert {m.id for m in got.markers} == ids
+    assert list(det.graphs.graphs) == [(1, 240, 320)]
+
+
+@pytest.mark.gpu
+def test_detect_sharded_on_card_equals_detect_batch_and_pose():
+    """``detect_sharded`` at NCCL world size 1 (a graph of detect + pose)
+    against ``detect_batch`` + ``solve_normalized_batch``."""
+    import torch.distributed as dist
+
+    from aruco3_tpu_torch import pose
+    from aruco3_tpu_torch.parallel import sharding
+
+    dev = cuda_device()
+    det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict("ARUCO_DEFAULT"),
+                   device=dev)
+    frames = _frames(320, 240, False)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        got = sharding.detect_sharded(det, frames, with_pose=True)
+    finally:
+        dist.destroy_process_group()
+    out = det.detect_batch(frames)
+    scale = torch.tensor([320.0, 240.0], device=dev)
+    rot, tr, err = pose.solve_normalized_batch(out["marker_corners"] / scale, 40.0)
+    ref = {k: out[k] for k in sharding.OUTPUT_KEYS}
+    ref.update(pose_rotations=rot, pose_translations=tr, pose_errors=err)
+    _assert_same(got, ref)
+
+
+@pytest.mark.gpu
+def test_detector_with_graphs_is_freed_without_the_collector():
+    """A detector's graphs hold no reference back to it, so dropping it
+    frees it (and destroys its graphs) at once, never in a collection that
+    could fall inside another graph's capture."""
+    import gc
+    import weakref
+
+    dev = cuda_device()
+    det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict("ARUCO_DEFAULT"),
+                   device=dev)
+    det.detect_batch(_frames(160, 120, False).to(dev))
+    gone = weakref.ref(det)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del det
+        assert gone() is None
+    finally:
+        if collecting:
+            gc.enable()

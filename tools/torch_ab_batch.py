@@ -7,7 +7,9 @@ path's phase-5 batch (``chip_smoke.BATCHES``).
 The frames, detectors and timing are those of the ``chip_smoke.py`` beside
 this tool (loaded by file), the port is the checkout's: run it in two
 checkouts in turns (parent, change, change, parent) in one call to compare
-them on one card.  Paths default to all five.  Needs the card.
+them on one card.  A checkout whose ``Detector`` keeps CUDA graphs is timed
+through its graph of detect + pose (``chip_smoke.pose_graph``), an older
+one eagerly (``chip_smoke.pose_step``).  Paths default to all five.  Needs the card.
 """
 
 import importlib.util
@@ -34,7 +36,11 @@ for path in wanted:
     batch = cs.BATCHES[path]
     big = torch.from_numpy(np.ascontiguousarray(
         np.broadcast_to(frames[0], (batch,) + frames.shape[1:]))).cuda()
-    ms = [cs.cuda_ms(lambda: cs.detect_and_pose(det, big), reps=REPS) for _ in range(3)]
+    # The checkout's main path: its graph of detect + pose where its
+    # Detector keeps graphs, else the eager detect + pose.
+    step = (cs.pose_graph(det, big.shape) if hasattr(det, "graphs")
+            else cs.pose_step(det, *big.shape[1:]))
+    ms = [cs.cuda_ms(lambda: step(big), reps=REPS) for _ in range(3)]
     print(f"ab tree={label} path={path} batch={batch} ms_per_batch="
           + " ".join(f"{m:.3f}" for m in ms), flush=True)
     del big
