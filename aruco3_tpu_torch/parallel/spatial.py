@@ -16,6 +16,15 @@ of the frame:
      (``detector.detect_from_masks``), whose cost does not grow with the
      resolution, runs replicated on every rank.
 
+The JAX package compiles the three steps as one program.  Here, on a
+card, the work between the collectives is replayed from CUDA graphs in
+the detector's graph cache: the band graph (``band_stage``: step 2, a
+graph a rank and world size, since the band's first row is fixed per
+rank) and the masks graph (``masks_stage``: the candidate tail, a graph
+a frame shape).  The halo exchange and the gathers run eagerly between
+them: a graph holds no NCCL operation.  Under gloo, which is how a
+caller asks for the CPU, the step runs eagerly.
+
 The process group is the caller's; see ``parallel.sharding`` for the
 devices (NCCL: ``cuda:<local rank>``; gloo: the CPU).
 """
@@ -108,20 +117,48 @@ def _exchange_halos(band: torch.Tensor, halo: int, group=None):
     return from_above, from_below
 
 
-def build_spatial_detect(detector: Detector, height: int, width: int, group=None):
+def band_stage(row0: int, height: int, width: int, window: int, halo: int, ds: int):
+    """The band graph's function: a rank's (Hs + 2*halo, W) uint8 band with
+    its halos, whose first central row is the frame's row ``row0`` ->
+    (its opened black mask (Hs, W) bool, that mask's pooling (Hs / ds,
+    ceil(W / ds)) bool)."""
+
+    def stage(grey_ext):
+        black = _threshold_open_tile(grey_ext, row0, height, width, window, OPEN_RADIUS, halo)
+        return black, segment.pool_black(black, ds)
+
+    return stage
+
+
+def masks_stage(dictionary, cfg, params, min_edge, min_sep, ds):
+    """The masks graph's function: the candidate tail
+    (``detector.detect_from_masks``) of (1, H, W) grey, (1, H, W) black
+    and (1, H / ds, ceil(W / ds)) coarse masks -> its batched outputs."""
+
+    def stage(grey, black, coarse):
+        return detect_from_masks(grey, black, coarse, dictionary, cfg, params, min_edge, min_sep,
+                                 ds)
+
+    return stage
+
+
+def build_spatial_detect(detector: Detector, height: int, width: int, group=None,
+                         graphs: bool = True):
     """A single-frame, row-sharded detect step: this rank's (H / world, W)
     uint8 band -> the frame's outputs (as ``detector.detect_arrays``), the
     same on every rank.  H must divide by world * coarse_factor (pad the
     frame otherwise, as ``detect_spatial`` does).
 
-    The quad parameters are the JAX package's (``sharding.parallel_geometry``),
-    and so is the open radius, 2.
+    On a card the two stages replay their CUDA graphs (``graphs=False``
+    runs them eagerly, as under gloo: the twin the graphs are held
+    against).  The quad parameters are the JAX package's
+    (``sharding.parallel_geometry``), and so is the open radius, 2.
     """
     cfg = detector.config
     dictionary = detector.dictionary
     device = rank_device(group)
     params, min_edge, min_sep, ds = parallel_geometry(cfg, height, width)
-    world = dist.get_world_size(group)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
     halo = cfg.threshold_window + 2 * OPEN_RADIUS
     if height % (world * ds):
         raise ValueError(f"H={height} must divide by ranks * coarse factor ({world}*{ds})")
@@ -129,24 +166,37 @@ def build_spatial_detect(detector: Detector, height: int, width: int, group=None
     if hs < halo:
         raise ValueError(f"a band of {hs} rows is narrower than the halo of {halo}")
 
+    def make_band():
+        return band_stage(rank * hs, height, width, cfg.threshold_window, halo, ds)
+
+    def make_masks():
+        return masks_stage(dictionary, cfg, params, min_edge, min_sep, ds)
+
+    if device.type == "cuda" and graphs:
+        cache = detector.graphs  # the step holds the cache; no graph holds the detector
+        band_key = ("spatial_band", height, width, world, rank, str(device))
+        masks_key = ("spatial_masks", height, width, str(device))
+        masks_in = (((1, height, width), torch.uint8), ((1, height, width), torch.bool),
+                    ((1, height // ds, -(-width // ds)), torch.bool))
+
+        def run_band(grey_ext):
+            return cache.get(band_key, make_band, grey_ext.shape, torch.uint8, device)(grey_ext)
+
+        def run_masks(grey, black, coarse):
+            return cache.get(masks_key, make_masks, masks_in, None, device)(grey, black, coarse)
+    else:
+        run_band, run_masks = make_band(), make_masks()
+
     def step(band):
         band = torch.as_tensor(band).to(device).reshape(hs, width)
         from_above, from_below = _exchange_halos(band, halo, group)
-        grey_ext = torch.cat([from_above, band, from_below])
-        row0 = dist.get_rank(group) * hs
-        black_band = _threshold_open_tile(
-            grey_ext, row0, height, width, cfg.threshold_window, OPEN_RADIUS, halo
-        )
-        coarse_band = segment.pool_black(black_band, ds)
+        black_band, coarse_band = run_band(torch.cat([from_above, band, from_below]))
         # Gather the masks and the grey frame; the candidate tail, whose
         # cost does not grow with the resolution, runs on every rank.
         black = gather_rows(black_band, group)
         coarse = gather_rows(coarse_band, group)
         grey = gather_rows(band, group)
-        out = detect_from_masks(
-            grey[None], black[None], coarse[None], dictionary, cfg, params, min_edge, min_sep, ds
-        )
-        return frame_of(out, 0)
+        return frame_of(run_masks(grey[None], black[None], coarse[None]), 0)
 
     return step
 

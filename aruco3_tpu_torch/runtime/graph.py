@@ -1,19 +1,19 @@
 """One captured CUDA graph per input shape: the port's counterpart of
-``jax.jit`` for a function of one fixed-shape device tensor.
+``jax.jit`` for a function of fixed-shape device tensors.
 
-``Graph`` runs the function once on a side stream over a zero input of
-the graph's shape (the warm-up: it builds the kernels and fills the lazy
+``Graph`` runs the function once on a side stream over zero inputs of
+the graph's shapes (the warm-up: it builds the kernels and fills the lazy
 device tables, such as kernel 4's tap table and the codebooks), then
 captures it with ``torch.cuda.graph``.  The graph reads those tables where
 they lie, so they must outlive it: the port caches them for the life of
 the process, and a ``Graph`` keeps its function (and what that closes
 over, such as a pose step's scale).  A call
-copies its argument into the graph's static input on the current stream,
-replays the graph there and clones every output on the same stream, so
-each call returns fresh tensors, as a JAX call does:
+copies its arguments into the graph's static inputs on the current
+stream, replays the graph there and clones every output on the same
+stream, so each call returns fresh tensors, as a JAX call does:
 
-* the copy of call N+1 is ordered after replay N, which may still be
-  reading the static input;
+* the copies of call N+1 are ordered after replay N, which may still be
+  reading the static inputs;
 * replay N+1 overwrites the static outputs only after call N's clones.
 
 A capture that fails raises, naming the operation it stopped at; there is
@@ -112,25 +112,36 @@ def kernel_nodes(graph: torch.cuda.CUDAGraph) -> int:
     return n
 
 
+def input_specs(shape, dtype) -> list:
+    """[(shape, dtype)] of a graph's inputs: the one input (``shape``,
+    ``dtype``), or, where ``dtype`` is None, the (shape, dtype) pairs that
+    ``shape`` holds."""
+    if dtype is not None:
+        return [(tuple(shape), dtype)]
+    return [(tuple(s), d) for s, d in shape]
+
+
 class Graph:
     """``fn`` captured for inputs of ``shape`` and ``dtype`` on the CUDA
-    device ``device``.
+    device ``device``; for a function of several tensors, ``shape`` is a
+    tuple of (shape, dtype) pairs and ``dtype`` None (``input_specs``).
 
     ``capture_ms`` is the host time of the capture and instantiation (the
     warm-up left out), ``pool_bytes`` what the memory pool grew by during
     it, ``kernel_nodes`` the graph's kernel nodes."""
 
-    def __init__(self, fn: Callable, shape, dtype: torch.dtype, device, pool=None):
+    def __init__(self, fn: Callable, shape, dtype: torch.dtype | None, device, pool=None):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph runs on a CUDA device, not {dev}")
         self.fn = fn
+        specs = input_specs(shape, dtype)
         with torch.cuda.device(dev):
-            self.input = torch.zeros(tuple(shape), dtype=dtype, device=dev)
+            self.inputs = [torch.zeros(s, dtype=d, device=dev) for s, d in specs]
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                fn(self.input)
+                fn(*self.inputs)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
 
@@ -148,10 +159,10 @@ class Graph:
             try:
                 with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                     with watch:
-                        self.outputs = fn(self.input)
+                        self.outputs = fn(*self.inputs)
             except Exception as e:
                 raise RuntimeError(
-                    f"CUDA graph capture on input {tuple(shape)} {dtype} failed at "
+                    f"CUDA graph capture on inputs {specs} failed at "
                     f"{watch.culprit or watch.last}: {e}"
                 ) from e
             finally:
@@ -172,17 +183,20 @@ class Graph:
         """Clones of the static outputs on the current stream."""
         return _clone(self.outputs)
 
-    def __call__(self, x: torch.Tensor):
-        """Copy ``x`` in, replay, return fresh outputs (all on the current
-        stream of the graph's device; no host sync unless ``x`` is a host
-        tensor)."""
-        if x.shape != self.input.shape or x.dtype != self.input.dtype:
+    def __call__(self, *xs: torch.Tensor):
+        """Copy the arguments in, replay, return fresh outputs (all on the
+        current stream of the graph's device; no host sync unless an
+        argument is a host tensor)."""
+        if len(xs) != len(self.inputs) or any(
+            x.shape != i.shape or x.dtype != i.dtype for x, i in zip(xs, self.inputs)
+        ):
             raise ValueError(
-                f"graph captured for {tuple(self.input.shape)} {self.input.dtype}, "
-                f"got {tuple(x.shape)} {x.dtype}"
+                f"graph captured for {[(tuple(i.shape), i.dtype) for i in self.inputs]}, "
+                f"got {[(tuple(x.shape), x.dtype) for x in xs]}"
             )
-        with torch.cuda.device(self.input.device):
-            self.input.copy_(x, non_blocking=x.is_cuda)
+        with torch.cuda.device(self.inputs[0].device):
+            for i, x in zip(self.inputs, xs):
+                i.copy_(x, non_blocking=x.is_cuda)
             self.graph.replay()
             for c, n in self.launches:
                 c.launches += n
@@ -201,8 +215,9 @@ class GraphCache:
     def get(self, key, make: Callable[[], Callable], shape, dtype, device) -> Graph:
         """The graph of ``key``; where the cache does not hold it, the
         function ``make()`` returns, captured for (``shape``, ``dtype``,
-        ``device``).  ``make`` runs once per capture, so the device
-        constants it builds are built once per graph."""
+        ``device``; several inputs as ``Graph`` takes them).  ``make``
+        runs once per capture, so the device constants it builds are built
+        once per graph."""
         g = self.graphs.get(key)
         if g is None:
             g = self.graphs[key] = Graph(make(), shape, dtype, device, self.pool)

@@ -67,7 +67,7 @@ Phases, each printing lines of numbers:
    against ``grid_sample`` and the tail route's warp + decode against
    kernel 4's.
 
-Phases 6-10 drive the other entry points, each once:
+Phases 6-11 drive the other entry points, each once:
 
 6. parity: ``parity.score`` of the port's detector on the card against
    the reference oracle on 20 seeded 1080p ``ARUCO_MIP_36H12`` scenes
@@ -84,13 +84,26 @@ Phases 6-10 drive the other entry points, each once:
 8. sharded: ``detect_sharded`` with pose at NCCL world size 1 (the step's
    own graph), equal to the batch's graph of detect + pose (integers and
    poses);
-9. spatial: ``detect_spatial`` at NCCL world size 1, and the frame as 4
-   row bands in this process through ``detect_from_masks``: ids of
-   ``Detector.detect``, corners within 1 px, kernels 2 (labels), 7, 3
-   and 8 launched and not kernel 1; kernels 3 and 8 there against their
-   plain versions;
+9. spatial: ``detect_spatial`` at NCCL world size 1 through its band
+   and masks graphs, on the 1080p landscape frame and on the 8K frame
+   (the noise-free landscape frame with each pixel repeated 4x4, then
+   noise drawn per 8K pixel: 4320x7680, ds 40):
+   outputs equal to the eager step's (integers bit for bit, floats 0.0),
+   ids of ``Detector.detect`` with corners within 1 px, every truth id
+   found, kernels 2 (labels), 7, 3 and 8 launched a replay and not
+   kernel 1; ms per frame eager and graphed in turns, device ms, idle
+   share, the graphs' capture ms, kernel nodes and pools, and
+   ``Detector.detect``'s graph on the same frame.  Then the 1080p frame
+   as 4 row bands in this process through ``detect_from_masks``, and
+   kernels 3 and 8 on that route against their plain versions;
 10. detect_arrays: kernel 1's opened mask against its plain version, and
-    ``detect_arrays`` against ``Detector.detect``.
+    ``detect_arrays`` against ``Detector.detect``;
+11. examples: ``examples/torch_pose_accuracy_sim.py``'s ``simulate`` for
+    its 24 views on the card (translation and normal-axis error: mean,
+    p95, max), every pose found finite and no fewer views detected than
+    the same function on the CPU (run in a process of its own beside
+    phases 2-4); ``examples/torch_detect_image.py``'s ``detect_image`` on
+    one synthesized 800x600 scene, which must find its marker.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -950,6 +963,10 @@ STREAMS, STREAM_BATCH, STREAM_RING, STREAM_FRAMES = 4, 8, 8, 32  # BASELINE conf
 STREAM_WINDOW_S, STREAM_REPEATS = 3.0, 3  # the rate windows of phase 7
 BANDS = 4  # row bands of the in-process spatial run
 MASKS_KERNELS = ("coarse_labels", "fused_fit", "refine", "warp_eval")
+SPATIAL_8K_SCALE, SPATIAL_8K_SEED = 4, 8  # the 8K frame's pixel repetition and noise seed
+SPATIAL_REPS = 5  # frames a phase-9 timing
+POSE_VIEWS = 24  # the pose-accuracy example's orbit
+DETECT_IMAGE_SEED = 3  # the detect-image example's synthesized scene
 
 
 def parity_reference(workers: int):
@@ -1266,22 +1283,103 @@ def same_markers(path, out, single) -> float:
     return worst
 
 
-def spatial_phase(det, scene) -> None:
-    """Phase 9: ``detect_spatial`` on the 1080p landscape frame at NCCL
-    world size 1, and the frame as 4 row bands in this process (each
-    band's halo cut from the frame, as the exchange delivers it), both
-    against ``Detector.detect``; launches of the masks route; kernels 3
-    and 8 on that route against their plain versions."""
+def spatial_size(label, det, frame, truth_ids, card) -> None:
+    """Phase 9 at one frame size: ``detect_spatial`` at NCCL world size 1
+    through its band and masks graphs (captured first), one replay with
+    the counts set to 0 just before and read just after, its outputs
+    against the eager step's (``graphs=False``) and its ids and corners
+    against ``Detector.detect``'s, every truth id found; then ms per frame,
+    eager and graphed in turns (eager, graph, graph, eager; CUDA events),
+    device ms, idle share and device operations per frame of each
+    (torch.profiler), the two graphs' capture ms, kernel nodes and pool
+    growth, and ``Detector.detect``'s graph on the same frame."""
+    import torch
+
+    from aruco3_tpu_torch.parallel import spatial
+
+    grey = torch.from_numpy(frame).cuda()
+    h, w = frame.shape
+    eager_step = spatial.build_spatial_detect(det, h, w, graphs=False)
+
+    def graphed():
+        return spatial.detect_spatial(det, grey)
+
+    def eager():
+        return eager_step(grey)
+
+    graphed()  # captures the band and masks graphs
+    out = counted(f"spatial {label}", graphed, MASKS_KERNELS)
+    launches = sum(c.launches for c in counters().values())
+    graph_vs_eager(f"spatial {label}", out, eager())
+    single = det.detect(frame)
+    worst = same_markers(f"spatial {label}", out, single)
+    ids = {m.id for m in single.markers}
+    require(truth_ids <= ids, f"spatial {label}: truth ids {sorted(truth_ids - ids)} missed")
+    e1 = cuda_ms(eager, SPATIAL_REPS)
+    g1 = cuda_ms(graphed, SPATIAL_REPS)
+    g2 = cuda_ms(graphed, SPATIAL_REPS)
+    e2 = cuda_ms(eager, SPATIAL_REPS)
+    ms, eager_ms = (g1 + g2) / 2, (e1 + e2) / 2
+    gp = profile_run(graphed)
+    ep = profile_run(eager)
+    detect_ms = cuda_ms(lambda: det.detect_batch(grey[None]), SPATIAL_REPS)
+    detect_dev = profile_run(lambda: det.detect_batch(grey[None]))
+    graphs = {k[0]: g for k, g in det.graphs.graphs.items()
+              if k[0] in ("spatial_band", "spatial_masks") and k[1:3] == (h, w)}
+    band, masks = graphs["spatial_band"], graphs["spatial_masks"]
+    log("spatial", size=label, card=repr(card), frame=f"{h}x{w}",
+        ds=det.geometry(h, w)[3], ids=sorted(ids), truth_ids_found=len(truth_ids),
+        worst_corner_diff_px=worst, event_ms=round(ms, 4), eager_event_ms=round(eager_ms, 4),
+        graph_ms_runs=[round(g1, 4), round(g2, 4)], eager_ms_runs=[round(e1, 4), round(e2, 4)],
+        device_ms=round(gp["device_ms"], 4), eager_device_ms=round(ep["device_ms"], 4),
+        idle_share=round(1.0 - gp["device_ms"] / ms, 3),
+        eager_idle_share=round(1.0 - ep["device_ms"] / eager_ms, 3),
+        kernel_launches_per_frame=launches, device_ops_per_frame=round(gp["device_ops"], 1),
+        eager_device_ops_per_frame=round(ep["device_ops"], 1),
+        htod_copies_per_frame=gp["htod"],
+        band_capture_ms=round(band.capture_ms, 1), band_kernel_nodes=band.kernel_nodes,
+        band_pool_mb=round(band.pool_bytes / 2**20, 1),
+        masks_capture_ms=round(masks.capture_ms, 1), masks_kernel_nodes=masks.kernel_nodes,
+        masks_pool_mb=round(masks.pool_bytes / 2**20, 1),
+        detect_event_ms=round(detect_ms, 4), detect_device_ms=round(detect_dev["device_ms"], 4))
+    print(json.dumps({"profile_top": f"spatial {label}", "device_ms_per_frame": {
+        k: round(v, 4) for k, v in gp["top"]}}), flush=True)
+
+
+def frame_8k(dictionary) -> np.ndarray:
+    """Phase 9's 8K frame: the landscape frame without its noise
+    (``render.bench_scene``, seed 0: the same 8 markers), each pixel
+    repeated 4x4 (4320x7680), then Gaussian noise of sigma 2 drawn for
+    each 8K pixel, as an 8K sensor's.  The noisy 1080p frame repeated
+    instead carries its noise in 4x4-pixel blocks, which the opening's 5x5
+    element no longer removes: the black mask fills with specks and no
+    marker is found, by the port or by the JAX package."""
+    from aruco3_tpu_torch import render
+
+    h, w = LANDSCAPE_HW
+    clean, _ = render.bench_scene(dictionary, (w, h), seed=0, noise_sigma=0.0)
+    big = np.repeat(np.repeat(clean, SPATIAL_8K_SCALE, axis=0), SPATIAL_8K_SCALE, axis=1)
+    noise = np.random.default_rng(SPATIAL_8K_SEED).standard_normal(big.shape, np.float32)
+    return np.clip(big + 2.0 * noise, 0, 255).astype(np.uint8)
+
+
+def spatial_phase(det, scene, truth, card) -> None:
+    """Phase 9: ``spatial_size`` on the 1080p landscape frame and on the
+    8K frame (``frame_8k``: 4320x7680, ds 40); then the 1080p frame as 4
+    row bands in this process (each band's halo cut from the frame, as
+    the exchange delivers it) through ``detect_from_masks`` eagerly,
+    against ``Detector.detect``, with the masks route's launches; kernels
+    3 and 8 on that route against their plain versions."""
     import torch
 
     from aruco3_tpu_torch import segment
     from aruco3_tpu_torch.detector import detect_from_masks, frame_of
     from aruco3_tpu_torch.parallel import sharding, spatial
 
+    truth_ids = {mid for mid, _ in truth}
+    spatial_size("1080p", det, scene, truth_ids, card)
+    spatial_size("8K", det, frame_8k(det.dictionary), truth_ids, card)
     single = det.detect(scene)
-    out = counted("spatial", lambda: spatial.detect_spatial(det, torch.from_numpy(scene)),
-                  MASKS_KERNELS)
-    worst = same_markers("spatial", out, single)
     h, w = scene.shape
     grey = torch.from_numpy(scene).cuda()
     params, min_edge, min_sep, ds = sharding.parallel_geometry(det.config, h, w)
@@ -1299,8 +1397,8 @@ def spatial_phase(det, scene) -> None:
         grey[None], black[None], coarse[None], det.dictionary, det.config, params, min_edge,
         min_sep, ds), 0), MASKS_KERNELS)
     worst_b = same_markers("spatial bands", bands, single)
-    log("spatial", backend="nccl", world=1, bands=BANDS, halo=halo, ids=sorted(
-        m.id for m in single.markers), worst_corner_diff_px=worst, bands_worst_corner_diff_px=worst_b)
+    log("spatial bands", backend="nccl", world=1, bands=BANDS, halo=halo,
+        bands_worst_corner_diff_px=worst_b)
     args, params, tail = masks_stage_inputs(grey[None], black[None], coarse[None], det)
     compare_kernels("spatial", args, params, tail)
 
@@ -1330,6 +1428,72 @@ def detect_arrays_phase(det, scene) -> None:
     log("detect_arrays", opened_pixels=int(got[3].sum()), worst_corner_diff_px=worst, **mism)
 
 
+def examples():
+    """The port's example scripts (``examples/torch_*.py``) as modules."""
+    from pathlib import Path
+
+    path = str(Path(__file__).resolve().parent / "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import torch_detect_image
+    import torch_pose_accuracy_sim
+
+    return torch_pose_accuracy_sim, torch_detect_image
+
+
+def pose_sim_cpu():
+    """Phase 11's CPU side: the pose-accuracy example's orbit detected on
+    the CPU (run in a process of its own beside phases 2-4)."""
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    return examples()[0].simulate(POSE_VIEWS, device="cpu"), time.perf_counter() - t0
+
+
+def stats_of(errs) -> dict:
+    """Mean, 95th percentile and max of an error array (None if empty)."""
+    if not len(errs):
+        return {"mean": None, "p95": None, "max": None}
+    return {"mean": round(float(errs.mean()), 4), "p95": round(float(np.percentile(errs, 95)), 4),
+            "max": round(float(errs.max()), 4)}
+
+
+def examples_phase(cpu, cpu_s) -> None:
+    """Phase 11: the pose-accuracy example (``simulate``: render, detect,
+    IPPE through the camera, compare) for its 24 views on the card: every
+    pose found finite, and no fewer views detected than the CPU run of the
+    same function; then the detect-image example on one synthesized
+    800x600 scene, whose marker it must find."""
+    from pathlib import Path
+
+    sim, detect_image = examples()
+    t0 = time.perf_counter()
+    res = sim.simulate(POSE_VIEWS, device="cuda")
+    card_s = time.perf_counter() - t0
+    for i, v in enumerate(res["views"]):
+        if v["translation"] is not None:
+            require(bool(np.isfinite(v["translation"]).all() and np.isfinite(v["normal"]).all()),
+                    f"pose sim: view {i} has a non-finite pose")
+    same_ids = sum(a["ids"] == b["ids"] for a, b in zip(res["views"], cpu["views"]))
+    t, r = stats_of(res["t_errs"]), stats_of(res["r_errs"])
+    log("pose sim", views=len(res["views"]), detected=res["detected"],
+        cpu_detected=cpu["detected"], views_ids_equal_cpu=same_ids,
+        **{f"t_err_mm_{k}": v for k, v in t.items()},
+        **{f"normal_err_deg_{k}": v for k, v in r.items()},
+        card_seconds=round(card_s, 2), cpu_seconds=round(cpu_s, 2))
+    require(res["detected"] >= cpu["detected"],
+            f"pose sim: {res['detected']} views detected on the card, {cpu['detected']} on the CPU")
+    out = Path(__file__).resolve().parent / "build" / "smoke_detected.ppm"
+    out.parent.mkdir(exist_ok=True)
+    got = detect_image.detect_image(device="cuda", rng=np.random.default_rng(DETECT_IMAGE_SEED),
+                                    out=str(out))
+    mid = got["truth"][0]
+    ids = [m.id for m in got["detection"].markers]
+    log("detect image", truth_id=mid, ids=ids, candidates=len(got["detection"].candidates))
+    require(mid in ids, f"detect image: marker {mid} not found ({ids})")
+
+
 def main() -> int:
     import multiprocessing
     import os
@@ -1342,14 +1506,15 @@ def main() -> int:
     import aruco3_tpu_torch  # noqa: F401  (fails at once outside a checkout)
 
     # Phase 6's reference side renders and runs the oracle on the host
-    # beside phases 2-4; phase 5 starts after it has ended, so that its
-    # timings have the host to themselves.
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as bg:
+    # beside phases 2-4, and so does phase 11's CPU run; phase 5 starts
+    # after both have ended, so that its timings have the host to
+    # themselves.
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as bg:
         reference = bg.submit(parity_reference, max(1, (os.cpu_count() or 3) - 2))
-        return run(reference)
+        return run(reference, bg.submit(pose_sim_cpu))
 
 
-def run(reference) -> int:
+def run(reference, pose_cpu) -> int:
     import torch
 
     card = smi_line()
@@ -1420,6 +1585,10 @@ def run(reference) -> int:
     parity_scenes, reference_s = reference.result()
     log("parity reference", scenes=len(parity_scenes), seconds=round(reference_s, 1),
         waited_s=round(time.perf_counter() - t_wait, 1))
+    t_wait = time.perf_counter()
+    pose_cpu, pose_cpu_s = pose_cpu.result()
+    log("pose sim cpu", views=len(pose_cpu["views"]), detected=pose_cpu["detected"],
+        seconds=round(pose_cpu_s, 1), waited_s=round(time.perf_counter() - t_wait, 1))
 
     # Phase 5: throughput, kernel against plain version, route comparison.
     at_batch = {}
@@ -1445,18 +1614,27 @@ def run(reference) -> int:
         for name in ("refine", "warp_decode"):
             kernel_timing(name, path, table[name], args_of[path][name], phase3[path][name],
                           at_batch[path][name], launches_of[path][name], card)
-    # Phases 6-10: parity, stream, sharded, spatial, detect_arrays.
+    # Phases 6-11: parity, stream, sharded, spatial, detect_arrays, examples.
     import torch.distributed as dist
 
-    parity_phase(card, parity_scenes, reference_s)
-    stream_phase(det, paths["landscape"][1], card)
+    phase_s = {}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        phase(*args)
+        phase_s[f"{name}_s"] = round(time.perf_counter() - t0, 1)
+
+    timed("parity", parity_phase, card, parity_scenes, reference_s)
+    timed("stream", stream_phase, det, paths["landscape"][1], card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
-        sharded_phase(det, paths["landscape"][1])
-        spatial_phase(det, scene)
+        timed("sharded", sharded_phase, det, paths["landscape"][1])
+        timed("spatial", spatial_phase, det, scene, truths["landscape"], card)
     finally:
         dist.destroy_process_group()
-    detect_arrays_phase(det, scene)
+    timed("detect_arrays", detect_arrays_phase, det, scene)
+    timed("examples", examples_phase, pose_cpu, pose_cpu_s)
+    log("phases 6-11", **phase_s)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -5,8 +5,9 @@ A captured graph cannot hold a host sync (``.item()``, ``bool()`` or
 built from host data during the call (a host-to-device copy on the card).
 Each route of ``detect_batch_arrays`` (and the masks route of
 ``detect_arrays``) runs twice with ``pose.solve_normalized_batch`` under a
-``TorchDispatchMode``: the first run fills the per-device caches, the
-second must dispatch none of those operations.  Only the kernels' plain
+``TorchDispatchMode``, and so does the spatial step's band stage
+(``parallel.spatial.band_stage``): the first run fills the per-device
+caches, the second must dispatch none of those operations.  Only the kernels' plain
 versions run outside the mode: on the card the kernels run in their place.
 
 Beside it, the constants hoisted out of the batch (code-word weights,
@@ -29,6 +30,7 @@ from aruco3_tpu import segment as jsegment
 from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig, ops, pose, rectify, segment
 from aruco3_tpu_torch.detector import detect_arrays, detect_batch_arrays
 from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine, warp_decode, warp_eval
+from aruco3_tpu_torch.parallel import spatial
 from aruco3_tpu_torch.runtime import graph
 from torch_twin import make_scene, n, t
 
@@ -49,15 +51,17 @@ HOST_SYNCS = ("aten._local_scalar_dense", "aten.nonzero.", "aten.masked_select",
               "aten.unique", "aten._unique")
 HOST_DATA = ("aten.lift_fresh",)
 
-# (config, frame (w, h), transpose, masks route)
+# (config, frame (w, h), transpose, stage: "batch" (``detect_batch_arrays``),
+# "masks" (``detect_arrays``) or "band" (the spatial band stage of rank 1 of 2))
 ROUTES = {
-    "fused": (DetectorConfig(), (320, 240), False, False),
-    "labels_k7": (DetectorConfig(), (320, 240), True, False),  # portrait 240x320
-    "labels_k5_k6": (DetectorConfig(max_candidates=160), (320, 240), False, False),
-    "tail": (DetectorConfig(refine_corners=False), (320, 240), False, False),
+    "fused": (DetectorConfig(), (320, 240), False, "batch"),
+    "labels_k7": (DetectorConfig(), (320, 240), True, "batch"),  # portrait 240x320
+    "labels_k5_k6": (DetectorConfig(max_candidates=160), (320, 240), False, "batch"),
+    "tail": (DetectorConfig(refine_corners=False), (320, 240), False, "batch"),
     "tail_gather": (DetectorConfig(refine_corners=False, warp_impl="gather"), (160, 120),
-                    False, False),
-    "masks": (DetectorConfig(), (320, 240), False, True),
+                    False, "batch"),
+    "masks": (DetectorConfig(), (320, 240), False, "masks"),
+    "band": (DetectorConfig(), (320, 240), False, "band"),
 }
 
 
@@ -90,7 +94,7 @@ def _outside(fn):
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_route_is_capture_safe(route):
-    cfg, (w, h), transpose, masks = ROUTES[route]
+    cfg, (w, h), transpose, stage = ROUTES[route]
     det = Detector(cfg, ARDictionary.new_from_named_dict("ARUCO_DEFAULT"), device="cpu")
     imgs = [make_scene(k, w, h, w / 320)[0] for k in ("single", "multi")]
     if transpose:
@@ -100,11 +104,19 @@ def test_route_is_capture_safe(route):
     scale = torch.tensor([float(frames.shape[2]), float(frames.shape[1])])
 
     def step():
-        if masks:
+        if stage == "band":
+            return band(band_ext), None
+        if stage == "masks":
             out = detect_arrays(frames[0], det.dictionary, cfg, *geometry)
         else:
             out = detect_batch_arrays(frames, det.dictionary, cfg, *geometry)
         return out, pose.solve_normalized_batch(out["marker_corners"] / scale, 40.0)
+
+    if stage == "band":  # rank 1's rows of frame 0 with the halos it receives
+        halo = cfg.threshold_window + 2 * spatial.OPEN_RADIUS
+        hs = h // 2
+        band = spatial.band_stage(hs, h, w, cfg.threshold_window, halo, geometry[3])
+        band_ext = torch.cat([frames[0, hs - halo :], torch.zeros((halo, w), dtype=torch.uint8)])
 
     with ExitStack() as stack:
         for module, name in PLAINS:
@@ -115,7 +127,11 @@ def test_route_is_capture_safe(route):
                 out, _ = step()
             runs.append(rec.found)
     assert runs[1] == [], sorted(set(runs[1]))
-    assert int(out["stats"]["markers"].sum()) > 0
+    if stage == "band":
+        black, coarse = out
+        assert black.shape == (hs, w) and bool(black.any()) and bool(coarse.any())
+    else:
+        assert int(out["stats"]["markers"].sum()) > 0
 
 
 def test_hoisted_constants_match_jax():
@@ -179,3 +195,10 @@ def test_graph_outputs_are_cloned_and_counters_registered():
                         fit.lanes_count, fit.fused_count, refine.count, warp_decode.count,
                         warp_eval.count}
     assert wrapper_counters <= set(ops.counters())
+
+
+def test_graph_input_specs():
+    """One input as (shape, dtype), several as a tuple of such pairs."""
+    assert graph.input_specs(torch.Size([2, 3]), torch.uint8) == [((2, 3), torch.uint8)]
+    pairs = (((1, 4, 4), torch.uint8), ([1, 2, 2], torch.bool))
+    assert graph.input_specs(pairs, None) == [((1, 4, 4), torch.uint8), ((1, 2, 2), torch.bool)]

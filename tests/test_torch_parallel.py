@@ -15,8 +15,9 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig, pose, render
-from aruco3_tpu_torch.detector import detect_arrays, detect_batch_arrays, detect_from_masks
+from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig, pose, render, segment
+from aruco3_tpu_torch.detector import (
+    detect_arrays, detect_batch_arrays, detect_from_masks, frame_of)
 from aruco3_tpu_torch.ops import frontend as kfrontend
 from aruco3_tpu_torch.parallel import sharding, spatial
 from torch_twin import make_scene, n, t
@@ -129,6 +130,42 @@ def test_spatial_matches_single_device(tmp_path, size, seed):
         assert np.abs(np.sort(corners_spatial.ravel())
                       - np.sort(corners_single.ravel())).max() <= 1.0
     assert torch.equal(results[0]["marker_corners"], results[1]["marker_corners"])
+
+
+def _spatial_default_job(frame):
+    det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict("ARUCO_DEFAULT"),
+                   device="cpu")
+    return spatial.detect_spatial(det, frame)
+
+
+@pytest.mark.parametrize("kind, h", [("multi", 240), ("nested", 250)])
+def test_spatial_step_equals_masks_route(tmp_path, kind, h):
+    """Every output of the spatial step at gloo world size 2 (its band and
+    masks stages between the halo exchange and the gathers) equals the
+    masks route on the whole frame's opened mask and pooling, bit for bit;
+    at 250 rows after its padding to 252 with white rows."""
+    img, ids = make_scene(kind, 320, h)
+    results = run_ranks(tmp_path, _spatial_default_job, torch.from_numpy(img))
+    d = ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
+    cfg = DetectorConfig()
+    frame = torch.from_numpy(img)
+    ds = segment.choose_coarse_factor(h, 320)
+    pad = (-h) % (WORLD * ds)
+    frame = torch.nn.functional.pad(frame, (0, 0, 0, pad), value=255)
+    params, min_edge, min_sep, ds = sharding.parallel_geometry(cfg, h + pad, 320)
+    coarse, _, _, black = kfrontend.plain(frame[None], cfg.threshold_window,
+                                          spatial.OPEN_RADIUS, ds, opened=True)
+    ref = frame_of(detect_from_masks(frame[None], black, coarse, d, cfg, params, min_edge,
+                                     min_sep, ds), 0)
+    assert {int(i) for i in ref["marker_id"][ref["marker_valid"]]} == ids
+    for got in results:
+        assert sorted(got) == sorted(ref)
+        for key in ref:
+            if key == "stats":
+                assert got[key] == ref[key]
+            else:
+                torch.testing.assert_close(got[key], ref[key], rtol=0, atol=0, equal_nan=True,
+                                           msg=key)
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -1,6 +1,6 @@
-"""The port's masks route and streaming runtime on the card, against the
-same functions on the CPU.  Imports no JAX; the tests need the card and
-skip elsewhere:
+"""The port's masks route, streaming runtime, CUDA graphs and spatial step
+on the card, against the same functions on the CPU or run eagerly.
+Imports no JAX; the tests need the card and skip elsewhere:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_paths_gpu.py
 """
@@ -265,6 +265,113 @@ def test_detector_with_graphs_is_freed_without_the_collector():
     try:
         del det
         assert gone() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
+@pytest.mark.gpu
+def test_graph_takes_several_inputs():
+    """A ``Graph`` of a function of three tensors of three types: each call
+    copies every argument in; a wrong count, shape or type is refused."""
+    from aruco3_tpu_torch.runtime import graph
+
+    dev = cuda_device()
+    specs = (((4, 8), torch.float32), ((4, 8), torch.int32), ((3,), torch.bool))
+
+    def fn(a, b, c):
+        return {"sum": a + b.to(a.dtype), "any": c.any(), "rows": a.sum(dim=1)}
+
+    g = graph.Graph(fn, specs, None, dev)
+    for seed in (1, 2):
+        gen = torch.Generator().manual_seed(seed)
+        a = torch.randn(4, 8, generator=gen).to(dev)
+        b = torch.randint(-5, 5, (4, 8), generator=gen, dtype=torch.int32).to(dev)
+        c = torch.tensor([False, seed == 2, False], device=dev)
+        _assert_same(g(a, b, c), fn(a, b, c))
+    with pytest.raises(ValueError, match="graph captured for"):
+        g(a, b)
+    with pytest.raises(ValueError, match="graph captured for"):
+        g(a, b.float(), c)
+    assert len(g.inputs) == 3 and g.kernel_nodes > 0
+
+
+def _nccl_world_of_one():
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    return dist
+
+
+def _landscape():
+    from aruco3_tpu_torch import render
+
+    d = ARDictionary.new_from_named_dict("ARUCO_MIP_36H12")
+    frame, truth = render.bench_scene(d, (1920, 1080), seed=0, noise_sigma=2.0)
+    return d, frame, {mid for mid, _ in truth}
+
+
+@pytest.mark.gpu
+def test_spatial_graphs_equal_eager_step():
+    """``detect_spatial`` at NCCL world size 1 on the 1080p frame replays
+    its band and masks graphs: the outputs equal the eager step's bit for
+    bit, a replay launches what the eager step launches (kernels 2 labels,
+    7, 3, 8; no plain version), and the ids are ``Detector.detect``'s."""
+    from aruco3_tpu_torch import ops
+    from aruco3_tpu_torch.parallel import spatial
+
+    dev = cuda_device()
+    d, frame, truth = _landscape()
+    det = Detector(DetectorConfig(), d, device=dev)
+    grey = torch.from_numpy(frame).to(dev)
+    dist = _nccl_world_of_one()
+    try:
+        spatial.detect_spatial(det, grey)  # captures
+        for c in ops.counters():
+            c.reset()
+        got = spatial.detect_spatial(det, grey)
+        torch.cuda.synchronize()
+        replay_counts = [c.launches for c in ops.counters()]
+        for c in ops.counters():
+            c.reset()
+        ref = spatial.build_spatial_detect(det, *frame.shape, graphs=False)(grey)
+        torch.cuda.synchronize()
+        assert [c.launches for c in ops.counters()] == replay_counts
+    finally:
+        dist.destroy_process_group()
+    assert sum(replay_counts) > 0 and all(c.plain_calls == 0 for c in ops.counters())
+    assert k1.count.launches == 0 and k2.labels_count.launches == 1
+    _assert_same(got, ref)
+    assert {k[0] for k in det.graphs.graphs} == {"spatial_band", "spatial_masks"}
+    ids = {int(i) for i in got["marker_id"][got["marker_valid"]]}
+    assert ids == {m.id for m in det.detect(frame).markers} and truth <= ids
+
+
+@pytest.mark.gpu
+def test_detector_with_spatial_graphs_is_freed_without_the_collector():
+    """The spatial graphs hold no reference back to the detector: dropping
+    it frees it and its graphs at once."""
+    import gc
+    import weakref
+
+    from aruco3_tpu_torch.parallel import spatial
+
+    dev = cuda_device()
+    det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict("ARUCO_DEFAULT"),
+                   device=dev)
+    dist = _nccl_world_of_one()
+    try:
+        spatial.detect_spatial(det, _frames(320, 240, False)[1].to(dev))
+    finally:
+        dist.destroy_process_group()
+    graphs = [weakref.ref(g) for g in det.graphs.graphs.values()]
+    assert len(graphs) == 2
+    gone = weakref.ref(det)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del det
+        assert gone() is None and all(g() is None for g in graphs)
     finally:
         if collecting:
             gc.enable()
