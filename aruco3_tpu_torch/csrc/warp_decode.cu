@@ -10,8 +10,10 @@
 // degenerate homography), then rectify.decode_patches up to the cell grid:
 // 256-bin Otsu on the samples rounded half to even, binarize with
 // `> level`, the Triangle resize of _triangle_resize_matrix(S, m) over
-// rows then columns, and `> 127`.  The weights are float32 here; the XLA
-// warp rounds them to bfloat16 (a stated deviation of the port).
+// rows then columns, and `> 127`.  The column weights are rounded to
+// bfloat16, as both JAX warps round them (warp_gather's wxT,
+// warp_patches_mxu's wx); the row weights and the blend stay float32, as
+// in warp_gather.  A sample near a cell's Otsu level decodes otherwise.
 //
 // What bounds it on an H100: the bytes of the samples output (every lane,
 // valid or not, gets its S*S floats) and, for the valid lanes, the
@@ -42,6 +44,7 @@
 // the reference's separate products do; the homography rows keep the one
 // fused step (fmaf) that the reference's float32 dot takes on the CPU.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -126,8 +129,8 @@ __device__ __forceinline__ float warp_sample(const float (&hh)[9], int L, float 
   const float uy = (L == 0 ? sy : (sy + 0.5f) * inv_scale - 0.5f) - oyf;
   const float x0 = floorf(ux), x1 = x0 + 1.0f;
   const float y0 = floorf(uy), y1 = y0 + 1.0f;
-  const float wx0 = fmaxf(1.0f - fabsf(ux - x0), 0.0f);
-  const float wx1 = fmaxf(1.0f - fabsf(ux - x1), 0.0f);
+  const float wx0 = __bfloat162float(__float2bfloat16_rn(fmaxf(1.0f - fabsf(ux - x0), 0.0f)));
+  const float wx1 = __bfloat162float(__float2bfloat16_rn(fmaxf(1.0f - fabsf(ux - x1), 0.0f)));
   const float wy0 = fmaxf(1.0f - fabsf(uy - y0), 0.0f);
   const float wy1 = fmaxf(1.0f - fabsf(uy - y1), 0.0f);
   // A tap outside the window reads the zero border: a cell clamped to

@@ -48,8 +48,9 @@ CPU tensor the same function runs each kernel's plain PyTorch version.
 ``detect_batch_arrays`` per batch shape (``Detector._compiled``, the JAX
 detector's one compiled program per shape); on the CPU it runs
 ``detect_batch_arrays`` eagerly.
-The warps sample with float32 weights where the JAX XLA warp rounds them
-to bfloat16.
+The refine route's warp (kernel 4) rounds its column weights to bfloat16
+as the JAX warps do; the tail route's warp (kernel 8) samples with float32
+weights where the JAX XLA warp rounds them to bfloat16.
 """
 
 from __future__ import annotations
@@ -336,26 +337,35 @@ def detect_batch_arrays(
     return out
 
 
-def candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused):
-    """Finalized candidate quads (quads, valid, stats) of (B, H, W) frames
-    from their coarse masks: both label planes fitted (``fused``: kernel 2
-    in fit mode; else kernel 2's labels mode, then kernel 7, or kernels 5
-    and 6 above 128 lanes), ``segment.merge_fits``, kernel 3's corner
-    refinement on ``near`` where ``params.refine`` and ds > 1, and
-    ``segment.finalize_quads``."""
+def fit_candidates(coarse, params, ds, fused):
+    """Both label planes of (B, Hc, Wc) coarse masks fitted and merged
+    into K lanes (``segment.merge_fits``: quads, centroids, sizes, ...)
+    before refinement: ``fused``, kernel 2 in fit mode; else kernel 2's
+    labels mode, then kernel 7, or kernels 5 and 6 above 128 lanes.
+    Returns (cand, the inner footprint at coarse resolution from kernel 2's
+    fit mode or None, the inner label plane or None)."""
     k1, k2 = params.max_candidates, params.max_inner_candidates
-    inner_coarse = None
     if fused:
         fit1, fit2, inner_coarse = coarse_fit(coarse, params, ds)
-    else:
-        labels1, labels2 = coarse_labels(coarse, params)
-        fit1, fit2 = fused_fit_batch(labels1, labels2, ds, params, k1, k2, dup_skip=True)
-    cand = segment.merge_fits(fit1, fit2, params, ds)
+        return segment.merge_fits(fit1, fit2, params, ds), inner_coarse, None
+    labels1, labels2 = coarse_labels(coarse, params)
+    fit1, fit2 = fused_fit_batch(labels1, labels2, ds, params, k1, k2, dup_skip=True)
+    return segment.merge_fits(fit1, fit2, params, ds), None, labels2
+
+
+def candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused):
+    """Finalized candidate quads (quads, valid, stats) of (B, H, W) frames
+    from their coarse masks: ``fit_candidates``, kernel 3's corner
+    refinement on ``near`` where ``params.refine`` and ds > 1, and
+    ``segment.finalize_quads``."""
+    cand, inner_coarse, labels2 = fit_candidates(coarse, params, ds, fused)
     quads = cand["quads"]
     if params.refine and ds > 1:
         if inner_coarse is None:  # label route: only refinement reads it
             inner_coarse = (
-                segment.inner_footprint(labels2) if k2 > 0 else torch.zeros_like(coarse)
+                segment.inner_footprint(labels2)
+                if params.max_inner_candidates > 0
+                else torch.zeros_like(coarse)
             )
         quads = refine_corners(
             grey,

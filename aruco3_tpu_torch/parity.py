@@ -24,8 +24,9 @@ from dataclasses import dataclass, field
 import multiprocessing
 
 import numpy as np
+import torch
 
-from .detector import Detector, DetectorConfig
+from .detector import Detector, DetectorConfig, to_host
 from .dictionaries import ARDictionary
 from .oracle import OracleDetector
 from .render import render_marker
@@ -223,12 +224,19 @@ def reference_scenes(
     return scenes
 
 
-def score(detector: Detector, scenes, match_px: float = 6.0) -> ParityResult:
+def score(
+    detector: Detector, scenes, match_px: float = 6.0, outputs: list | None = None
+) -> ParityResult:
     """``detector`` on ``reference_scenes`` output, scored against the
-    ground truth and the oracle's detections."""
+    ground truth and the oracle's detections.  ``outputs``, where given,
+    receives each scene's ``detect_batch`` output (one frame), of which
+    ``Detector.detect`` is the host copy."""
     res = ParityResult()
     for k, (kind, img, truths, orc) in enumerate(scenes):
-        _score(res, k, kind, truths, detector.detect(img).markers, orc, match_px)
+        out = detector.detect_batch(torch.from_numpy(np.ascontiguousarray(img))[None])
+        if outputs is not None:
+            outputs.append(out)
+        _score(res, k, kind, truths, to_host(out, 0).markers, orc, match_px)
     return res
 
 
@@ -250,22 +258,21 @@ def run_parity(
     return score(det, scenes, match_px)
 
 
+def matching(markers, mid: int, truth, match_px: float = 6.0) -> list:
+    """The markers (anything with ``id`` and ``corners``) of id ``mid``
+    whose corners lie within ``match_px`` of ``truth`` (mean corner
+    distance at the best cyclic shift): the markers that find it."""
+    return [m for m in markers if m.id == mid and _corner_err(m.corners, truth) < match_px]
+
+
 def _score(res: ParityResult, k: int, kind: str, truths, tpu, orc, match_px: float) -> None:
     res.n_scenes += 1
     fam = res.families.setdefault(kind, np.zeros(4, np.int64))
     for mid, truth in truths:
         res.n_markers += 1
         fam[0] += 1
-        t = [
-            m
-            for m in tpu
-            if m.id == mid and _corner_err(m.corners, truth) < match_px
-        ]
-        o = [
-            m
-            for m in orc
-            if m.id == mid and _corner_err(m.corners, truth) < match_px
-        ]
+        t = matching(tpu, mid, truth, match_px)
+        o = matching(orc, mid, truth, match_px)
         if t:
             res.tpu_found += 1
             fam[2] += 1

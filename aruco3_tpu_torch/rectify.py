@@ -233,7 +233,9 @@ def warp_samples(
     tly: torch.Tensor,
     patch_size: int,
 ) -> torch.Tensor:
-    """Bilinear patch samples, plain version of the warp kernel.
+    """Bilinear patch samples, plain version of the warp kernel: column
+    weights rounded to bfloat16 as the JAX warps round them, row weights
+    and the blend float32.
 
     grey (B, H, W) u8 is level 0 (zero outside the image); uppers are the
     padded float32 levels 1..L-1; H (B, K, 3, 3); lvl/tlx/tly (B, K) from
@@ -244,6 +246,12 @@ def warp_samples(
     ux, uy = window_coords(sx, sy, lvl, tlx, tly)
     x0, x1, wx0, wx1, inx0, inx1 = _taps(ux)
     y0, y1, wy0, wy1, iny0, iny1 = _taps(uy)
+    # The JAX package's warps both round the column weights to bfloat16
+    # (warp_gather's wxT, warp_patches_mxu's wx); the row weights stay
+    # float32 in warp_gather.  A sample near a cell's Otsu level decodes
+    # differently otherwise.
+    wx0 = wx0.to(torch.bfloat16).to(torch.float32)
+    wx1 = wx1.to(torch.bfloat16).to(torch.float32)
 
     vals = torch.zeros_like(ux)
     planes = [grey] + list(uppers)

@@ -50,7 +50,13 @@ Phases, each printing lines of numbers:
    ground-truth marker within 2 px with a finite pose.  Dense on 4 frames,
    noref and small on 16: frame 0 equal to the port's CPU path (ids,
    codes, rounded corners, stats); noref every marker within 12 px (its
-   corners are the coarse fit's, ~ds px), small its marker within 2 px;
+   corners are the coarse fit's, ~ds px), small its marker within 2 px.
+   Then each path's recorded frames (landscape, portrait and noref 4,
+   dense 2, small 4) through the path's graph at that batch, held lane by
+   lane against the JAX package's results on the same frames
+   (``tests/torch_golden/paths.npz``; ``tools/torch_golden.py`` compares:
+   integers bit-exact, fit-corner ties accepted and counted, poses within
+   ``tests/test_pose.py``'s tolerances);
 5. timing: detect + pose in frames/s (landscape, portrait and noref at
    batch 128, dense at 16, small at 512), eager and graphed in turns
    (eager, graph, graph, eager); the graph's capture ms, kernel nodes,
@@ -71,7 +77,9 @@ Phases 6-11 drive the other entry points, each once:
 
 6. parity: ``parity.score`` of the port's detector on the card against
    the reference oracle on 20 seeded 1080p ``ARUCO_MIP_36H12`` scenes
-   (seed 5), at least 0.99.  The scenes and the oracle's detections
+   (seed 5), at least 0.99, and each scene's markers held against the
+   JAX package's (``tests/torch_golden/scenes.npz``: lanes, ids, codes,
+   distances, rounded corners).  The scenes and the oracle's detections
    (``parity.reference_scenes``, host numpy) are made in a process of
    their own while phases 2-4 run; phase 5 waits for it;
 7. stream: ``StreamPipeline`` at BASELINE config 5's shape (4 streams of
@@ -90,8 +98,10 @@ Phases 6-11 drive the other entry points, each once:
    noise drawn per 8K pixel: 4320x7680, ds 40):
    outputs equal to the eager step's (integers bit for bit, floats 0.0),
    ids of ``Detector.detect`` with corners within 1 px, every truth id
-   found, kernels 2 (labels), 7, 3 and 8 launched a replay and not
-   kernel 1; ms per frame eager and graphed in turns, device ms, idle
+   found, on the 8K frame ``Detector.detect`` held lane by lane against
+   the JAX package's (``tests/torch_golden/frame_8k.npz``), kernels 2
+   (labels), 7, 3 and 8 launched a replay and not kernel 1; ms per frame
+   eager and graphed in turns, device ms, idle
    share, the graphs' capture ms, kernel nodes and pools, and
    ``Detector.detect``'s graph on the same frame.  Then the 1080p frame
    as 4 row bands in this process through ``detect_from_masks``, and
@@ -100,13 +110,21 @@ Phases 6-11 drive the other entry points, each once:
     ``detect_arrays`` against ``Detector.detect``;
 11. examples: ``examples/torch_pose_accuracy_sim.py``'s ``simulate`` for
     its 24 views on the card (translation and normal-axis error: mean,
-    p95, max), every pose found finite and no fewer views detected than
-    the same function on the CPU (run in a process of its own beside
-    phases 2-4); ``examples/torch_detect_image.py``'s ``detect_image`` on
-    one synthesized 800x600 scene, which must find its marker.
+    p95, max), every pose found finite, every view's ids equal to those
+    of the same function on the CPU (run in a process of its own beside
+    phases 2-4), and every view held against the JAX package's
+    (``tests/torch_golden/orbit.npz``: ids, translation and normal), the
+    JAX views' statistics printed beside the card's;
+    ``examples/torch_detect_image.py``'s ``detect_image`` on one
+    synthesized 800x600 scene, which must find its marker.
 
-Then one JSON line with the kernels, the ``nvidia-smi`` line, and the last
-line ``{"ok": true, "device": {...}}``.  Imports no JAX.
+Then a ``[jax records]`` line a phase (frames, scenes or views compared and
+equal, ties accepted, differences), one JSON line with the kernels, the
+``nvidia-smi`` line, and the last line ``{"ok": true, "device": {...}}``.
+Imports no JAX.  The inputs come from ``tools/torch_golden.py``; the run
+stops if a JAX record is missing, if a frame's sha256 differs from the
+recorded one (make the records again with ``tools/torch_make_golden.py``
+on a machine with JAX), or if any comparison finds a difference.
 
 Each kernel's ``bound_ms`` is the larger of its bytes over 3.35 TB/s and
 its operations over 67 T/s (the H100's non-tensor float32 peak; integer
@@ -131,15 +149,14 @@ import subprocess
 import sys
 import time
 
+from pathlib import Path
+
 import numpy as np
 
-LANDSCAPE_HW = (1080, 1920)
-DICT_NAME = "ARUCO_MIP_36H12"
-DENSE_HW = (2160, 3840)
-SMALL_HW = (120, 160)
-# The "single" scene of the twin tests at half size: marker 5 of ARUCO_DEFAULT.
-SMALL_QUAD = np.array([[100, 70], [220, 75], [215, 190], [95, 185]], float) * 0.5
-MARKER_MM = 40.0
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+import torch_golden as golden  # noqa: E402  (the inputs, and the JAX records' comparator)
+
+LANDSCAPE_HW, DICT_NAME, MARKER_MM = golden.LANDSCAPE_HW, golden.DICT_NAME, golden.MARKER_MM
 # Noref corners are the coarse fit's, within ~ds px of the truth (the JAX
 # package's worst on the landscape frame is 9.46 px).
 NOREF_TOL_PX = 12.0
@@ -253,37 +270,6 @@ def nbytes(*objs) -> int:
         elif isinstance(o, (tuple, list)):
             total += nbytes(*o)
     return total
-
-
-def grid_frame(d, h, w, cell, rng, n_cols, n_rows):
-    """ChArUco-style dense grid of markers, each rendered on its own tile
-    (the board of the JAX package's ``benches/bench_configs.py``).  Returns
-    the frame and [(id, corners (4, 2))]."""
-    from aruco3_tpu_torch.render import render_marker
-
-    img = np.full((h, w), 255, dtype=np.uint8)
-    side = int(cell * 0.8)
-    quad = np.array(
-        [[2.0, 2.0], [2.0 + side, 2.0], [2.0 + side, 2.0 + side], [2.0, 2.0 + side]]
-    )
-    tile = side + 4
-    truth = []
-    for r in range(n_rows):
-        for c in range(n_cols):
-            mid = (r * n_cols + c) % len(d)
-            x0 = 40 + c * cell
-            y0 = 40 + r * cell
-            if x0 + tile >= w or y0 + tile >= h:
-                continue
-            sub = render_marker(d, mid, (tile, tile), quad, noise_sigma=0.0)
-            img[y0 : y0 + tile, x0 : x0 + tile] = np.minimum(
-                img[y0 : y0 + tile, x0 : x0 + tile], sub
-            )
-            truth.append((mid, quad + [x0, y0]))
-    img = np.clip(
-        img.astype(np.float64) + rng.normal(0, 2.0, img.shape), 0, 255
-    ).astype(np.uint8)
-    return img, truth
 
 
 def counters():
@@ -915,46 +901,53 @@ def kernel_timing(name, path, fns, a, checked, batch, launches, card) -> dict:
 
 
 def path_inputs():
-    """The five paths' inputs: ({path: (detector on the card, frames (n, H,
-    W) u8)}, {path: ground truth [(id, corners)]})."""
-    from dataclasses import replace
+    """The five paths' inputs (``golden.path_frames``): ({path: (detector on
+    the card, frames (n, H, W) u8)}, {path: ground truth [(id, corners)] of
+    frame 0}).  Fails if a frame differs from the one the JAX records were
+    made from."""
+    from aruco3_tpu_torch import ARDictionary, Detector
 
-    from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig, render
-    from aruco3_tpu_torch.models import presets
+    specs = golden.path_specs()
+    frames = golden.path_frames()
+    records = golden.load("paths")
+    paths, truths, dets = {}, {}, {}
+    for path in golden.PATHS:
+        name, cfg = specs[path]
+        golden.check_hashes(path, golden.subset(records, path)["hashes"], frames[path][0])
+        key = (name, cfg)
+        if key not in dets:
+            dets[key] = Detector(cfg, ARDictionary.new_from_named_dict(name), device="cuda")
+        paths[path] = (dets[key], frames[path][0])
+        truths[path] = frames[path][1]
+    return paths, truths, records
 
-    dictionary = ARDictionary.new_from_named_dict(DICT_NAME)
-    det = Detector(DetectorConfig(), dictionary, device="cuda")
-    h, w = LANDSCAPE_HW
-    scene, truth = render.bench_scene(dictionary, (w, h), seed=0, noise_sigma=2.0)
-    extra = [render.bench_scene(dictionary, (w, h), seed=s)[0] for s in (1, 2, 3)]
-    portrait = np.ascontiguousarray(np.rot90(scene))
-    # np.rot90 turns the frame a quarter counter-clockwise: (x, y) -> (y, W-1-x).
-    truth_p = [(mid, np.stack([c[:, 1], (w - 1) - c[:, 0]], axis=-1)) for mid, c in truth]
-    pre = presets.get_preset("4k-dense-grid")
-    dense_cfg = replace(pre.config, max_candidates=160)
-    dense_dict = ARDictionary.new_from_named_dict(pre.dictionary)
-    det_dense = Detector(dense_cfg, dense_dict, device="cuda")
-    dh, dw = DENSE_HW
-    boards = [grid_frame(dense_dict, dh, dw, 230, np.random.default_rng(s), 14, 9)
-              for s in range(2)]
-    det_noref = Detector(DetectorConfig(refine_corners=False), dictionary, device="cuda")
-    small_dict = ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
-    det_small = Detector(DetectorConfig(), small_dict, device="cuda")
-    sh, sw = SMALL_HW
-    smalls = np.stack([render.render_marker(small_dict, 5, (sw, sh), SMALL_QUAD, noise_sigma=2.0,
-                                            rng=np.random.default_rng(s)) for s in range(4)])
 
-    paths = {
-        "landscape": (det, np.stack([scene] + extra)),
-        "portrait": (det, np.stack([portrait] + [np.ascontiguousarray(np.rot90(e))
-                                                 for e in extra])),
-        "dense": (det_dense, np.stack([b[0] for b in boards])),
-        "noref": (det_noref, np.stack([scene] + extra)),
-        "small": (det_small, smalls),
-    }
-    truths = {"landscape": truth, "portrait": truth_p, "dense": boards[0][1], "noref": truth,
-              "small": [(5, SMALL_QUAD)]}
-    return paths, truths
+def jax_report(phase: str, rep, totals: dict) -> None:
+    """Logs a comparison with the JAX records (counts, each accepted tie
+    on a line of its own, the first differences) and adds its counts to
+    ``totals``; fails on any difference."""
+    log(f"{phase} vs jax", **rep.counts())
+    for item, lane, fields in rep.ties:
+        log(f"{phase} vs jax tie accepted", item=item, lane=lane, fields=",".join(fields))
+    for d in rep.differences[:20]:
+        print(f"[{phase} vs jax difference] {d}", flush=True)
+    t = totals.setdefault(phase.split()[0], {"compared": 0, "equal": 0, "ties_accepted": 0,
+                                             "differences": 0})
+    for k in t:
+        t[k] += rep.counts()[k]
+    require(not rep.differences, f"{phase}: {len(rep.differences)} differences from the JAX records")
+
+
+def held_to_jax(path, det, frames, records, totals) -> None:
+    """Phase 4 against the JAX package: the path's recorded frames through
+    the path's graph (detect + pose), every lane of every frame held
+    against the record (``golden.compare_batch``)."""
+    import torch
+
+    out, rot, tr, err = pose_graph(det, frames.shape)(torch.from_numpy(frames).cuda())
+    rep = golden.compare_batch(path, golden.subset(records, path), frames, out, (rot, tr, err),
+                               lambda: golden.port_fits(det, frames))
+    jax_report(f"path {path}", rep, totals)
 
 
 # Phases 6-10: the entry points beside ``detect_batch``.
@@ -963,7 +956,6 @@ STREAMS, STREAM_BATCH, STREAM_RING, STREAM_FRAMES = 4, 8, 8, 32  # BASELINE conf
 STREAM_WINDOW_S, STREAM_REPEATS = 3.0, 3  # the rate windows of phase 7
 BANDS = 4  # row bands of the in-process spatial run
 MASKS_KERNELS = ("coarse_labels", "fused_fit", "refine", "warp_eval")
-SPATIAL_8K_SCALE, SPATIAL_8K_SEED = 4, 8  # the 8K frame's pixel repetition and noise seed
 SPATIAL_REPS = 5  # frames a phase-9 timing
 POSE_VIEWS = 24  # the pose-accuracy example's orbit
 DETECT_IMAGE_SEED = 3  # the detect-image example's synthesized scene
@@ -981,14 +973,20 @@ def parity_reference(workers: int):
     return scenes, time.perf_counter() - t0
 
 
-def parity_phase(card, scenes, reference_s) -> None:
+def parity_phase(card, scenes, reference_s, scene_records, totals) -> None:
     """Phase 6: the port's detector on the card against the oracle on the
-    reference scenes (``parity.score``, as ``parity.run_parity``)."""
+    reference scenes (``parity.score``, as ``parity.run_parity``), and
+    scene by scene against the JAX records (``golden.compare_scenes``)."""
     from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig, parity
 
     t0 = time.perf_counter()
     det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict(DICT_NAME), device="cuda")
-    res = parity.score(det, scenes)
+    outs = []
+    res = parity.score(det, scenes, outputs=outs)
+    images = [img for _, img, _, _ in scenes]
+    jax_report("parity", golden.compare_scenes(
+        "phase6", golden.subset(scene_records, "phase6"), images, outs,
+        lambda k: golden.port_fits(det, images[k][None])), totals)
     s = res.summary()
     log("parity", card=repr(card), dictionary=DICT_NAME, scenes=res.n_scenes,
         markers=res.n_markers, oracle_found=res.oracle_found, port_found=res.tpu_found,
@@ -1283,12 +1281,14 @@ def same_markers(path, out, single) -> float:
     return worst
 
 
-def spatial_size(label, det, frame, truth_ids, card) -> None:
+def spatial_size(label, det, frame, truth_ids, card, record=None, totals=None) -> None:
     """Phase 9 at one frame size: ``detect_spatial`` at NCCL world size 1
     through its band and masks graphs (captured first), one replay with
     the counts set to 0 just before and read just after, its outputs
     against the eager step's (``graphs=False``) and its ids and corners
-    against ``Detector.detect``'s, every truth id found; then ms per frame,
+    against ``Detector.detect``'s, every truth id found, and
+    ``Detector.detect``'s lanes against the JAX record of the frame where
+    ``record`` is given (``golden.compare_scenes``); then ms per frame,
     eager and graphed in turns (eager, graph, graph, eager; CUDA events),
     device ms, idle share and device operations per frame of each
     (torch.profiler), the two graphs' capture ms, kernel nodes and pool
@@ -1313,6 +1313,10 @@ def spatial_size(label, det, frame, truth_ids, card) -> None:
     graph_vs_eager(f"spatial {label}", out, eager())
     single = det.detect(frame)
     worst = same_markers(f"spatial {label}", out, single)
+    if record is not None:
+        jax_report(f"spatial {label}", golden.compare_scenes(
+            label, record, [frame], [det.detect_batch(grey[None])],
+            lambda k: golden.port_fits(det, frame[None])), totals)
     ids = {m.id for m in single.markers}
     require(truth_ids <= ids, f"spatial {label}: truth ids {sorted(truth_ids - ids)} missed")
     e1 = cuda_ms(eager, SPATIAL_REPS)
@@ -1346,26 +1350,10 @@ def spatial_size(label, det, frame, truth_ids, card) -> None:
         k: round(v, 4) for k, v in gp["top"]}}), flush=True)
 
 
-def frame_8k(dictionary) -> np.ndarray:
-    """Phase 9's 8K frame: the landscape frame without its noise
-    (``render.bench_scene``, seed 0: the same 8 markers), each pixel
-    repeated 4x4 (4320x7680), then Gaussian noise of sigma 2 drawn for
-    each 8K pixel, as an 8K sensor's.  The noisy 1080p frame repeated
-    instead carries its noise in 4x4-pixel blocks, which the opening's 5x5
-    element no longer removes: the black mask fills with specks and no
-    marker is found, by the port or by the JAX package."""
-    from aruco3_tpu_torch import render
-
-    h, w = LANDSCAPE_HW
-    clean, _ = render.bench_scene(dictionary, (w, h), seed=0, noise_sigma=0.0)
-    big = np.repeat(np.repeat(clean, SPATIAL_8K_SCALE, axis=0), SPATIAL_8K_SCALE, axis=1)
-    noise = np.random.default_rng(SPATIAL_8K_SEED).standard_normal(big.shape, np.float32)
-    return np.clip(big + 2.0 * noise, 0, 255).astype(np.uint8)
-
-
-def spatial_phase(det, scene, truth, card) -> None:
+def spatial_phase(det, scene, truth, card, record_8k, totals) -> None:
     """Phase 9: ``spatial_size`` on the 1080p landscape frame and on the
-    8K frame (``frame_8k``: 4320x7680, ds 40); then the 1080p frame as 4
+    8K frame (``golden.frame_8k``: 4320x7680, ds 40; ``Detector.detect``
+    held against the JAX record ``record_8k``); then the 1080p frame as 4
     row bands in this process (each band's halo cut from the frame, as
     the exchange delivers it) through ``detect_from_masks`` eagerly,
     against ``Detector.detect``, with the masks route's launches; kernels
@@ -1378,7 +1366,8 @@ def spatial_phase(det, scene, truth, card) -> None:
 
     truth_ids = {mid for mid, _ in truth}
     spatial_size("1080p", det, scene, truth_ids, card)
-    spatial_size("8K", det, frame_8k(det.dictionary), truth_ids, card)
+    spatial_size("8K", det, golden.frame_8k(det.dictionary), truth_ids, card,
+                 golden.subset(record_8k, "8k"), totals)
     single = det.detect(scene)
     h, w = scene.shape
     grey = torch.from_numpy(scene).cuda()
@@ -1430,8 +1419,6 @@ def detect_arrays_phase(det, scene) -> None:
 
 def examples():
     """The port's example scripts (``examples/torch_*.py``) as modules."""
-    from pathlib import Path
-
     path = str(Path(__file__).resolve().parent / "examples")
     if path not in sys.path:
         sys.path.insert(0, path)
@@ -1459,14 +1446,14 @@ def stats_of(errs) -> dict:
             "max": round(float(errs.max()), 4)}
 
 
-def examples_phase(cpu, cpu_s) -> None:
+def examples_phase(cpu, cpu_s, orbit_records, totals) -> None:
     """Phase 11: the pose-accuracy example (``simulate``: render, detect,
     IPPE through the camera, compare) for its 24 views on the card: every
-    pose found finite, and no fewer views detected than the CPU run of the
-    same function; then the detect-image example on one synthesized
+    pose found finite, each view's ids equal to the CPU run's of the same
+    function, and each view held against the JAX records (ids, translation
+    and normal: ``golden.compare_views``), the JAX views' error statistics
+    beside the card's; then the detect-image example on one synthesized
     800x600 scene, whose marker it must find."""
-    from pathlib import Path
-
     sim, detect_image = examples()
     t0 = time.perf_counter()
     res = sim.simulate(POSE_VIEWS, device="cuda")
@@ -1477,13 +1464,22 @@ def examples_phase(cpu, cpu_s) -> None:
                     f"pose sim: view {i} has a non-finite pose")
     same_ids = sum(a["ids"] == b["ids"] for a, b in zip(res["views"], cpu["views"]))
     t, r = stats_of(res["t_errs"]), stats_of(res["r_errs"])
+    rec = golden.subset(orbit_records, "orbit")
+    jax = golden.view_stats(rec)
     log("pose sim", views=len(res["views"]), detected=res["detected"],
-        cpu_detected=cpu["detected"], views_ids_equal_cpu=same_ids,
+        cpu_detected=cpu["detected"], jax_detected=jax["detected"], views_ids_equal_cpu=same_ids,
         **{f"t_err_mm_{k}": v for k, v in t.items()},
+        **{f"jax_t_err_mm_{k}": jax[f"t_err_{k}"] for k in t},
         **{f"normal_err_deg_{k}": v for k, v in r.items()},
+        **{f"jax_normal_err_deg_{k}": jax[f"r_err_{k}"] for k in r},
         card_seconds=round(card_s, 2), cpu_seconds=round(cpu_s, 2))
-    require(res["detected"] >= cpu["detected"],
-            f"pose sim: {res['detected']} views detected on the card, {cpu['detected']} on the CPU")
+    require(same_ids == len(cpu["views"]) == len(res["views"]),
+            f"pose sim: ids of {same_ids} of {len(res['views'])} views equal to the CPU run's")
+    for i, (v, t_err, r_err) in enumerate(zip(res["views"], rec["t_err"], rec["r_err"])):
+        log("pose sim view", view=i, ids=v["ids"], t_err_mm=v["t_err_mm"], jax_t_err_mm=float(t_err),
+            normal_err_deg=v["r_err_deg"], jax_normal_err_deg=float(r_err))
+    frames = [v["image"] for v in res["views"]]
+    jax_report("pose sim", golden.compare_views("orbit", rec, frames, res["views"]), totals)
     out = Path(__file__).resolve().parent / "build" / "smoke_detected.ppm"
     out.parent.mkdir(exist_ok=True)
     got = detect_image.detect_image(device="cuda", rng=np.random.default_rng(DETECT_IMAGE_SEED),
@@ -1529,7 +1525,10 @@ def run(reference, pose_cpu) -> int:
     _build.lib()
     log("build", seconds=round(time.perf_counter() - t0, 3), library=_build.library_path().name)
 
-    paths, truths = path_inputs()
+    paths, truths, records = path_inputs()
+    scene_records, orbit_records, record_8k = (golden.load(n) for n in ("scenes", "orbit",
+                                                                          "frame_8k"))
+    totals = {}  # phase -> counts of the comparisons with the JAX records
     det, det_dense, det_noref, det_small = (
         paths[p][0] for p in ("landscape", "dense", "noref", "small"))
     scene, portrait = paths["landscape"][1][0], paths["portrait"][1][0]
@@ -1580,6 +1579,8 @@ def run(reference, pose_cpu) -> int:
         worst_corner_err_px=round(worst_s, 3), cpu_reference_s=round(cpu_s, 3),
         candidates_equal_cpu=cand_eq)
     del s16
+    for path in golden.PATHS:
+        held_to_jax(path, paths[path][0], paths[path][1], records, totals)
 
     t_wait = time.perf_counter()
     parity_scenes, reference_s = reference.result()
@@ -1624,17 +1625,19 @@ def run(reference, pose_cpu) -> int:
         phase(*args)
         phase_s[f"{name}_s"] = round(time.perf_counter() - t0, 1)
 
-    timed("parity", parity_phase, card, parity_scenes, reference_s)
+    timed("parity", parity_phase, card, parity_scenes, reference_s, scene_records, totals)
     timed("stream", stream_phase, det, paths["landscape"][1], card)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         timed("sharded", sharded_phase, det, paths["landscape"][1])
-        timed("spatial", spatial_phase, det, scene, truths["landscape"], card)
+        timed("spatial", spatial_phase, det, scene, truths["landscape"], card, record_8k, totals)
     finally:
         dist.destroy_process_group()
     timed("detect_arrays", detect_arrays_phase, det, scene)
-    timed("examples", examples_phase, pose_cpu, pose_cpu_s)
+    timed("examples", examples_phase, pose_cpu, pose_cpu_s, orbit_records, totals)
     log("phases 6-11", **phase_s)
+    for phase, counts in totals.items():
+        log("jax records", of=phase, **counts)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -60,18 +60,19 @@ def orbit_views(n_views: int, dictionary: ARDictionary, intr_px: CameraIntrinsic
 def simulate(n_views: int = 24, device: str = "cuda") -> dict:
     """Render, detect on ``device`` and solve each of ``n_views`` views.
 
-    Returns {"views": per view {"ids": the ids found, "translation" (3,)
-    and "normal" (3,) of the best pose of marker 17, or None where it was
-    missed, "t_err_mm", "r_err_deg" (None where missed)}, "detected": the
-    views where marker 17 was found, "t_errs", "r_errs": their errors}."""
+    Returns {"views": per view {"image": the rendered frame, "ids": the
+    ids found, "translation" (3,) and "normal" (3,) of the best pose of
+    marker 17, or None where it was missed, "t_err_mm", "r_err_deg" (None
+    where missed)}, "detected": the views where marker 17 was found,
+    "t_errs", "r_errs": their errors}."""
     dictionary = ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
     detector = Detector(DetectorConfig(), dictionary, device=device)
     intr_px = camera()
     views = []
     for img, rot, trans in orbit_views(n_views, dictionary, intr_px):
         det = detector.detect(img)
-        view = {"ids": [m.id for m in det.markers], "translation": None, "normal": None,
-                "t_err_mm": None, "r_err_deg": None}
+        view = {"image": img, "ids": [m.id for m in det.markers], "translation": None,
+                "normal": None, "t_err_mm": None, "r_err_deg": None}
         match = [m for m in det.markers if m.id == MARKER_ID]
         if match:
             best, _alt = pose.solve_with_intrinsics(match[0].corners, MARKER_MM, intr_px)

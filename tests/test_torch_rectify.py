@@ -1,10 +1,13 @@
 """Twin tests of the port's rectification: homography, pyramid, warp,
 Otsu, Triangle resize and the bit read.
 
-The port's warp evaluates its bilinear weights in float32.  Against the
-XLA pyramid warp (``warp_patches_mxu``), which rounds weights and its row
-contraction to bfloat16, it agrees to 2 grey.  At level 0 it agrees with
-the gather warp (``rectify.warp_patches``, float32) to 1e-3 grey.
+The port's warp (kernel 4's plain version) rounds its column weights to
+bfloat16 as the JAX warps do and keeps its row weights float32, as the
+gather warp (``ops/warp_gather.py``, through ``warp_patches_dma``) does.
+At level 0, where that warp reads the frame itself, the two are equal bit
+for bit.  Against the XLA pyramid warp (``warp_patches_mxu``), which also
+rounds its row weights and row contraction to bfloat16, it agrees to 2
+grey.
 """
 
 import functools
@@ -72,13 +75,25 @@ def _port_samples(grey, quads):
 
 
 def test_warp_level0_matches_gather_warp(rng):
+    """Level 0 equals the JAX gather warp (the Pallas kernel in interpret
+    mode) bit for bit: float32 column weights instead of its bfloat16 ones
+    move samples by up to half a grey level, which flips cells that sit at
+    their Otsu level (1080p suite scenes ARUCO_MIP_36H12 22 and
+    APRILTAG_36H11 59 decoded other codes)."""
     grey = _scene(rng)
     quads = _random_quads(rng, 12, 12, 36)  # small: level 0
     got, lvl = _port_samples(grey, quads)
     assert (n(lvl) == 0).all()
-    jH, _ = jrectify.homography_square_to_quad(jnp.asarray(quads), S)
-    ref = np.asarray(jrectify.warp_patches(jnp.asarray(grey), jH, S))
-    np.testing.assert_allclose(n(got).reshape(-1, S, S), ref, rtol=0, atol=1e-3)
+    jq = jnp.asarray(quads)[None]
+    jH, _ = jrectify.homography_square_to_quad(jq, S)
+    levels = rectify.num_levels(*SHAPE)
+    canvas, offsets, shapes = jrectify.build_packed_pyramid(jnp.asarray(grey)[None], levels)
+    # Under jit, as the detector runs it: XLA then rounds each homography
+    # row as rectify.sample_coords does.
+    warp = jax.jit(lambda c, h, q: jrectify.warp_patches_dma(c, offsets, shapes, h, q, S,
+                                                             interpret=True))
+    ref = np.asarray(warp(canvas, jH, jq))
+    np.testing.assert_array_equal(n(got).reshape(-1, S, S), ref[0])
 
 
 @functools.lru_cache(maxsize=None)

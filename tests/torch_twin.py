@@ -8,9 +8,15 @@ carry the ``gpu`` marker and skip where no card is present.
 
 from __future__ import annotations
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import torch_golden  # noqa: E402
 
 # xdist runs several workers on a few cores; keep each to one thread.
 torch.set_num_threads(1)
@@ -38,14 +44,10 @@ def cuda_device() -> torch.device:
 def assert_quads_tie_equivalent(qa, qb, centroids, sizes):
     """Fitted quads of used lanes are equal, or differ only where corner A
     is an extreme-point tie (equally far from the centroid), after which
-    the other corners legitimately follow the other choice."""
-    qa, qb = n(qa).astype(np.float64), n(qb).astype(np.float64)
-    cen = n(centroids).astype(np.float64)
-    used = n(sizes) > 0
-    differs = (qa != qb).reshape(qa.shape[:-2] + (-1,)).any(-1) & used
-    da = ((qa[..., 0, :] - cen) ** 2).sum(-1)
-    db = ((qb[..., 0, :] - cen) ** 2).sum(-1)
-    bad = differs & (np.abs(da - db) >= 1e-2)
+    the other corners legitimately follow the other choice: the rule of
+    ``tools/torch_golden.py``'s ``tie_lanes``."""
+    differs, accepted = torch_golden.tie_lanes(n(qa), n(qb), n(centroids), n(sizes))
+    bad = differs & ~accepted
     assert not bad.any(), np.argwhere(bad)
 
 
