@@ -7,16 +7,21 @@
 // padding True, then r_open dilations padding False), segment.pool_black
 // (count*2 >= max(ds, 2), padding False), the near mask
 // _dilate3(_dilate3(opened)) of segment.refine_corners, and pyramid level 1
-// of rectify.build_pyramid (2x2 means of the zero-padded frame, exact in
-// float32).
+// of the zero-padded frame in one of two modes, as the route asks: on the
+// refine route the TPU kernel's own (emit_level1, bit-identical to
+// rectify.build_packed_pyramid's chain): r = bf16(g[2i] + g[2i+1]) per
+// column, then bf16(0.25 r[2j] + 0.25 r[2j+1]), each sum in float32, stored
+// as bfloat16; on the tail route rectify.build_pyramid's exact float32 2x2
+// means, stored as float32.
 //
 // What bounds it on an H100: device-memory bytes in principle, the SM's
 // integer and shared-memory pipes in practice.  Per 1080p frame the
 // function reads the frame (2.07 MB) and writes the near mask (2.07 MB),
-// level 1 (2.07 MB) and the coarse plane: 0.24 ms per batch of 128 at
-// 3.35 TB/s.  Once each pixel is read from device memory once and every
-// intermediate plane stays on chip, what is left is per-pixel instructions
-// (every one a pixel costs about 0.02 ms a batch on the integer pipes) and
+// level 1 (1.04 MB in bfloat16, 2.07 MB in float32) and the coarse plane:
+// 0.20 ms per batch of 128 at 3.35 TB/s on the refine route.  Once each
+// pixel is read from device memory once and every intermediate plane stays
+// on chip, what is left is per-pixel instructions (every one a pixel costs
+// about 0.02 ms a batch on the integer pipes) and
 // the grey halo each tile stages again.  So the design counts instructions
 // per pixel and sizes tiles to cut the halo.
 //
@@ -42,14 +47,15 @@
 //     shuffle for the rows above and below; cells outside the image take
 //     the padding of the op about to read them, as the XLA code pads each
 //     stage.  The warps without a window meanwhile take level 1 from the
-//     staged grey: four columns of two rows an item, byte pairs summed two
-//     at a time in the 16-bit halves of a word;
+//     staged grey: four columns of two rows an item, the row pairs of two
+//     columns at a time summed in the 16-bit halves of a word;
 //  5. writes the near mask (and the opened mask where asked for) as 16-byte
 //     stores of one bool a pixel, narrower at unaligned row ends, and each
 //     coarse cell from popcounts of at most two words a row.
 // The grey and column-sum row pitches are odd in 4-byte words, so the 32
 // rows a warp reads fall in 32 banks.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,7 +100,8 @@ struct Args {
   uint8_t* near;
   uint8_t* opened;  // may be null
   uint8_t* coarse;
-  float* level1;
+  void* level1;  // __nv_bfloat16 where chain, else float
+  int chain;
   int H, W, r, r_open, ds, th, tw, hc, wc, h1, w1;
 };
 
@@ -215,10 +222,19 @@ __device__ __forceinline__ void store_item(const uint32_t (&w)[4], uint8_t* gs, 
     if (c0 + 4 * m < L.pg) dst[m] = w[m];
 }
 
+// The chain's level-1 value of a column pair from its two row-pair sums
+// (integers up to 510): each rounded to bfloat16, then 0.25 of each summed
+// in float32 (exact) and rounded to bfloat16.
+__device__ __forceinline__ __nv_bfloat16 chain_pair(uint32_t r0, uint32_t r1) {
+  const float a = __bfloat162float(__float2bfloat16_rn(static_cast<float>(r0)));
+  const float c = __bfloat162float(__float2bfloat16_rn(static_cast<float>(r1)));
+  return __float2bfloat16_rn(0.25f * a + 0.25f * c);
+}
+
 // Level 1 of the tile from the staged grey (zeros outside the image),
 // items first, first + stride, ...: an item is four tile columns of a pair
-// of rows, two 32-bit loads; the bytes of each column pair add up in the
-// two 16-bit halves of a word.
+// of rows, two 32-bit loads; the row pairs of columns 0 and 2 (and of 1
+// and 3) add up in the two 16-bit halves of a word.
 __device__ void level1_items(const Args& a, const Layout& L, const uint8_t* gs, int b, int y0,
                              int x0, int first, int stride) {
   const int yi0 = y0 / 2;
@@ -231,12 +247,21 @@ __device__ void level1_items(const Args& a, const Layout& L, const uint8_t* gs, 
     const int cq = q - p * nq;
     const uint32_t* src = reinterpret_cast<const uint32_t*>(tile + 2 * p * L.pg) + cq;
     const uint32_t u0 = src[0], u1 = src[L.pg / 4];
-    const uint32_t s = (u0 & 0x00ff00ffu) + ((u0 >> 8) & 0x00ff00ffu) + (u1 & 0x00ff00ffu) +
-                       ((u1 >> 8) & 0x00ff00ffu);
+    const uint32_t ev = (u0 & 0x00ff00ffu) + (u1 & 0x00ff00ffu);
+    const uint32_t od = ((u0 >> 8) & 0x00ff00ffu) + ((u1 >> 8) & 0x00ff00ffu);
     const int xi = x0 / 2 + 2 * cq;
-    float* dst = a.level1 + (size_t(b) * a.h1 + yi0 + p) * a.w1 + xi;
-    if (xi < a.w1) dst[0] = float(s & 0xffffu) * 0.25f;
-    if (4 * cq + 4 <= a.tw && xi + 1 < a.w1) dst[1] = float(s >> 16) * 0.25f;
+    const size_t at = (size_t(b) * a.h1 + yi0 + p) * a.w1 + xi;
+    const bool second = 4 * cq + 4 <= a.tw && xi + 1 < a.w1;
+    if (a.chain) {
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.level1) + at;
+      if (xi < a.w1) dst[0] = chain_pair(ev & 0xffffu, od & 0xffffu);
+      if (second) dst[1] = chain_pair(ev >> 16, od >> 16);
+    } else {
+      const uint32_t s = ev + od;
+      float* dst = static_cast<float*>(a.level1) + at;
+      if (xi < a.w1) dst[0] = float(s & 0xffffu) * 0.25f;
+      if (second) dst[1] = float(s >> 16) * 0.25f;
+    }
   }
 }
 
@@ -492,10 +517,11 @@ __global__ void __launch_bounds__(THREADS, 2) frontend_kernel(const Args a) {
 }  // namespace
 
 // grey (B,H,W) u8 -> near (B,H,W) and, unless null, opened (B,H,W) as 0/1
-// bytes, coarse (B,hc,wc) 0/1 bytes, level1 (B,h1,w1) f32, in one launch of
-// th x tw tiles (ops/frontend.py plan).  Returns a cudaError_t.
+// bytes, coarse (B,hc,wc) 0/1 bytes, level1 (B,h1,w1) (bf16 by the chain
+// where chain, else exact f32), in one launch of th x tw tiles
+// (ops/frontend.py plan).  Returns a cudaError_t.
 extern "C" int a3_frontend(const uint8_t* grey, uint8_t* near, uint8_t* opened,
-                           uint8_t* coarse, float* level1, int B, int H, int W, int r,
+                           uint8_t* coarse, void* level1, int chain, int B, int H, int W, int r,
                            int r_open, int ds, int th, int tw, int hc, int wc, int h1, int w1,
                            cudaStream_t stream) {
   if (B == 0) return cudaSuccess;
@@ -507,7 +533,8 @@ extern "C" int a3_frontend(const uint8_t* grey, uint8_t* near, uint8_t* opened,
   if (L.total > size_t(SMEM_MAX) || L.nw > NWMAX ||
       (th - 1) / (32 * morph_rows_per_lane(L.eb) - 2 * L.eb) + 1 > WARPS)
     return cudaErrorInvalidValue;
-  const Args a{grey, near, opened, coarse, level1, H, W, r, r_open, ds, th, tw, hc, wc, h1, w1};
+  const Args a{grey, near, opened, coarse, level1, chain, H, W, r, r_open, ds, th, tw, hc, wc,
+               h1,   w1};
   const dim3 grid((max(W, 2 * w1) + tw - 1) / tw, (max(H, 2 * h1) + th - 1) / th, B);
   const int smem = static_cast<int>(L.total);
   auto kernel = L.wide ? frontend_kernel<uint32_t> : frontend_kernel<uint16_t>;

@@ -2,18 +2,19 @@
 //
 // Replaces the TPU kernel aruco3_tpu/ops/warp_gather.py warp_gather_eval
 // (pallas_call at :516) with its fused decode epilogue, entered through
-// aruco3_tpu/rectify.py warp_patches_dma (:457).  Its specification is the
-// XLA code it reproduces: the pyramid warp of rectify._warp_setup /
-// warp_patches_mxu (one pyramid level per lane, chosen from the quad's
-// bounding box, one 64-px window, separable bilinear weights
-// max(0, 1 - |u - j|), zero outside the window and the image, zero for a
-// degenerate homography), then rectify.decode_patches up to the cell grid:
-// 256-bin Otsu on the samples rounded half to even, binarize with
-// `> level`, the Triangle resize of _triangle_resize_matrix(S, m) over
-// rows then columns, and `> 127`.  The column weights are rounded to
-// bfloat16, as both JAX warps round them (warp_gather's wxT,
-// warp_patches_mxu's wx); the row weights and the blend stay float32, as
-// in warp_gather.  A sample near a cell's Otsu level decodes otherwise.
+// aruco3_tpu/rectify.py warp_patches_dma (:457).  It samples what that
+// kernel samples: the pyramid warp of rectify._warp_setup (one pyramid
+// level per lane, chosen from the quad's bounding box, one 64-px window,
+// separable bilinear weights max(0, 1 - |u - j|), zero outside the window
+// and the image, zero for a degenerate homography) on the bfloat16 levels
+// of rectify.build_packed_pyramid's chain (levels >= 1 come in as
+// bfloat16 planes, ops/frontend.py chain mode and rectify.upper_levels),
+// with the column weights rounded to bfloat16 (warp_gather's wxT) and the
+// row weights and the blend float32; then rectify.decode_patches up to the
+// cell grid: 256-bin Otsu on the samples rounded half to even, binarize
+// with `> level`, the Triangle resize of _triangle_resize_matrix(S, m)
+// over rows then columns, and `> 127`.  A sample near a cell's Otsu level
+// decodes otherwise.
 //
 // What bounds it on an H100: the bytes of the samples output (every lane,
 // valid or not, gets its S*S floats) and, for the valid lanes, the
@@ -63,7 +64,7 @@ constexpr int PW = WIN + 2 * PAD;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Uppers {
-  const float* ptr[A3_MAX_UPPERS];  // level l + 1, (B, h[l], w[l]) float32
+  const __nv_bfloat16* ptr[A3_MAX_UPPERS];  // level l + 1, (B, h[l], w[l]) bfloat16
   int h[A3_MAX_UPPERS];
   int w[A3_MAX_UPPERS];
   int n;
@@ -76,6 +77,9 @@ size_t smem_bytes(int S, int m) {
   const size_t win = static_cast<size_t>(PW) * PW * 4;
   return ((resize > win ? resize : win) + 15) & ~size_t(15);
 }
+
+__device__ __forceinline__ float to_float(uint8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // The lane's 64x64 window of its level, zero outside the level's plane,
 // inside a zero border of PAD cells (a PW x PW buffer).
@@ -91,7 +95,7 @@ __device__ __forceinline__ void stage_window(const T* __restrict__ plane, int ph
   for (int j = 0; j < PER; ++j) {
     const int y = oy + row0 + j * (THREADS / WIN);
     v[j] = (x >= 0 && x < pw && y >= 0 && y < ph)
-               ? static_cast<float>(plane[static_cast<size_t>(y) * pw + x])
+               ? to_float(plane[static_cast<size_t>(y) * pw + x])
                : 0.0f;
   }
 #pragma unroll
@@ -211,7 +215,8 @@ warp_decode_kernel(const uint8_t* __restrict__ grey, const __grid_constant__ Upp
   } else {
     const bool have = L >= 1 && L <= up.n;  // else the plain version's zeros
     const int ph = have ? up.h[L - 1] : 0, pw = have ? up.w[L - 1] : 0;
-    const float* plane = have ? up.ptr[L - 1] + static_cast<size_t>(b) * ph * pw : nullptr;
+    const __nv_bfloat16* plane =
+        have ? up.ptr[L - 1] + static_cast<size_t>(b) * ph * pw : nullptr;
     stage_window(plane, ph, pw, ox, oy, win);
   }
   for (int i = threadIdx.x; i < WARPS * 256; i += THREADS) (&whist[0][0])[i] = 0;
@@ -385,7 +390,7 @@ cudaError_t launch(int N, size_t smem, cudaStream_t stream, const uint8_t* grey,
 
 }  // namespace
 
-// grey (B,H,W) u8 is level 0; levels 1..n_uppers are float32 (B,ph,pw)
+// grey (B,H,W) u8 is level 0; levels 1..n_uppers are bfloat16 (B,ph,pw)
 // planes whose device pointers and (ph, pw) pairs come in host arrays
 // (level_ptrs, level_dims).  taps is the resize table on the device, int32
 // words: start (m), count (m), then m rows of T float32 weights (row o's
@@ -404,7 +409,7 @@ extern "C" int a3_warp_decode(const uint8_t* grey, const long long* level_ptrs,
   Uppers up = {};
   up.n = n_uppers;
   for (int l = 0; l < n_uppers; ++l) {
-    up.ptr[l] = reinterpret_cast<const float*>(level_ptrs[l]);
+    up.ptr[l] = reinterpret_cast<const __nv_bfloat16*>(level_ptrs[l]);
     up.h[l] = level_dims[2 * l];
     up.w[l] = level_dims[2 * l + 1];
   }

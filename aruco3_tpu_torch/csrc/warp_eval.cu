@@ -9,9 +9,12 @@
 // over x, y in 0..63, with wx = max(0, 1 - |ux - x|) and wy the same in y.
 // Only the taps floor(u) and floor(u) + 1 that lie inside the window carry
 // weight (a coordinate in (-1, 0) or (63, 64) keeps one partial tap; one
-// further out none), so each sample is four taps.  The weights are float32;
-// the TPU kernel rounds wx and the windows to bfloat16 (a stated deviation
-// of the port).
+// further out none), so each sample is four taps.  As the TPU kernel does,
+// it rounds wx and each window value to bfloat16 (__float2bfloat16_rn) and
+// keeps wy, the row sums and the blend float32.  A product of two bfloat16
+// values is exact in float32, so a row sum of two taps rounds once, in
+// whatever order the TPU kernel's matrix product adds them: the samples
+// are the TPU kernel's bit for bit.
 //
 // What bounds it on an H100: bytes at many lanes, latency at few.  Per
 // window it reads 16 KB of window and 8 * S^2 bytes of coordinates and
@@ -29,11 +32,12 @@
 // dependent loads a sample, as grid_sample makes, and no staging.  Every
 // lane given is evaluated, as on the TPU.
 //
-// Rounding: each row sum accumulates its taps in ascending x with one
-// fused multiply-add per tap (fmaf), as a float32 matrix product does; the
-// row blend is a separate product and sum (built with -fmad=false), as the
-// plain version's elementwise product and reduction are.
+// Rounding: each row sum accumulates its two taps with one fused
+// multiply-add each (fmaf; the products are exact, so the sum rounds once);
+// the row blend is a separate product and sum (built with -fmad=false), as
+// the plain version's elementwise product and reduction are.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,6 +57,10 @@ struct Taps {
   bool in0, in1;
 };
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ Taps taps(float u) {
   const float f0 = floorf(u);
   const float f1 = f0 + 1.0f;
@@ -67,21 +75,21 @@ __device__ __forceinline__ Taps taps(float u) {
 }
 
 // A tap from shared memory, or from device memory through the read-only
-// cache.
+// cache, rounded to bfloat16.
 template <bool kGlobal>
 __device__ __forceinline__ float tap(const float* p) {
-  return kGlobal ? __ldg(p) : *p;
+  return bf16_round(kGlobal ? __ldg(p) : *p);
 }
 
-// sum_x wx[x] * row[x] over the two taps, ascending x.  A tap outside the
-// window adds 0 * (a finite grey value), which leaves the sum as skipping
-// it would.
+// sum_x wx[x] * row[x] over the two taps, ascending x, with the weights
+// rounded to bfloat16.  A tap outside the window adds 0 * (a finite grey
+// value), which leaves the sum as skipping it would.
 template <bool kGlobal>
 __device__ __forceinline__ float row_sum(const float* row, const Taps& x) {
   const float v0 = tap<kGlobal>(row + x.j0);
   const float v1 = tap<kGlobal>(row + x.j1);
-  const float acc = fmaf(x.in0 ? x.w0 : 0.0f, v0, 0.0f);
-  return fmaf(x.in1 ? x.w1 : 0.0f, v1, acc);
+  const float acc = fmaf(x.in0 ? bf16_round(x.w0) : 0.0f, v0, 0.0f);
+  return fmaf(x.in1 ? bf16_round(x.w1) : 0.0f, v1, acc);
 }
 
 // One sample: four taps of `win` (in device memory if kGlobal).

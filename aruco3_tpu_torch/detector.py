@@ -9,7 +9,7 @@ Refine route (corner refinement on and ds > 1; the JAX Pallas route):
 
 1. luma (torch)
 2. kernel 1 ``ops.frontend``: threshold, opening, pooling, near mask,
-   pyramid level 1
+   pyramid level 1 by the bfloat16 chain (``chain=True``)
 3. the fit of both label planes, by the route ``fit_route`` picks:
    * "fused": kernel 2 ``ops.coarse_fit`` (fit mode) labels and fits in
      one launch and emits the inner footprint;
@@ -21,13 +21,13 @@ Refine route (corner refinement on and ds > 1; the JAX Pallas route):
 5. kernel 3 ``ops.refine``: full-resolution corner refinement
 6. ``segment.finalize_quads`` (torch)
 7. homography (torch)
-8. pyramid levels >= 2 as 2x2 means of level 1 (torch)
+8. pyramid levels >= 2 by the same chain from level 1 (torch)
 9. kernel 4 ``ops.warp_decode``: warp, Otsu, Triangle resize, cell grid
 10. grid tail and dictionary match (torch)
 
 Tail route (no refinement, or ds == 1; the JAX ``_detect_tail``):
 
-1. luma, kernel 1 as above
+1. luma, kernel 1 as above with level 1 the exact float32 means
 2. kernel 2 in labels mode, then ``ops.fit.fused_fit_batch`` (kernel 7,
    or kernels 5 and 6), ``segment.merge_fits``, ``segment.finalize_quads``
 3. ``decode_tail``: homography; the pyramid warp (window slices in torch,
@@ -48,9 +48,9 @@ CPU tensor the same function runs each kernel's plain PyTorch version.
 ``detect_batch_arrays`` per batch shape (``Detector._compiled``, the JAX
 detector's one compiled program per shape); on the CPU it runs
 ``detect_batch_arrays`` eagerly.
-The refine route's warp (kernel 4) rounds its column weights to bfloat16
-as the JAX warps do; the tail route's warp (kernel 8) samples with float32
-weights where the JAX XLA warp rounds them to bfloat16.
+Each route's warp samples what the JAX TPU kernel of that route samples:
+kernel 4 the gather warp's (``warp_patches_dma``), kernel 8 the Pallas
+``warp_eval``'s (``rectify`` says how).
 """
 
 from __future__ import annotations
@@ -309,10 +309,10 @@ def detect_batch_arrays(
     dict of (B,) int32 counters."""
     grey = frontend.rgb_to_luma_u8(images).contiguous()
     _, h, w = grey.shape
-    coarse, near, level1 = threshold_open_pool(
-        grey, cfg.threshold_window, params.open_radius, ds
-    )
     tail = tail_route(params, ds)
+    coarse, near, level1 = threshold_open_pool(
+        grey, cfg.threshold_window, params.open_radius, ds, chain=not tail
+    )
     fused = not tail and fit_route(
         coarse.shape[1], coarse.shape[2], params.max_candidates, params.max_inner_candidates
     ) == "fused"

@@ -6,8 +6,11 @@ frames:
 
 * coarse (B, ceil(H/ds), ceil(W/ds)) bool — the pooled opened black mask;
 * near (B, H, W) bool — the opened mask dilated twice by 3x3;
-* level1 (B, ph0/2, pw0/2) float32 — pyramid level 1 (2x2 means of the
-  frame zero-padded to even and >= 64);
+* level1 (B, ph0/2, pw0/2) — pyramid level 1 of the frame zero-padded to
+  even and >= 64: float32 exact 2x2 means (the tail route's, XLA's
+  ``build_pyramid``), or with ``chain=True`` bfloat16, the chain of the
+  JAX frontend kernel's ``emit_level1`` and ``build_packed_pyramid``
+  (the refine route's; ``rectify.level1_plane``);
 * with ``opened=True``, also the opened black mask (B, H, W) bool.
 
 ``plan`` sizes the kernel's tiles; ``tiles`` lists what each tile writes.
@@ -121,23 +124,26 @@ def tiles(h: int, w: int, ds: int, th: int, tw: int):
             )
 
 
-def plain(grey: torch.Tensor, window: int, open_radius: int, ds: int, opened: bool = False):
+def plain(grey: torch.Tensor, window: int, open_radius: int, ds: int, opened: bool = False,
+          chain: bool = False):
     """The same outputs from the ported XLA functions."""
     count.plain_calls += 1
     white = frontend.adaptive_threshold(grey, window)
     black = segment.open_mask(~white, open_radius)
-    out = (segment.pool_black(black, ds), segment.near_mask(black), rectify.level1_plane(grey))
+    out = (segment.pool_black(black, ds), segment.near_mask(black),
+           rectify.level1_plane(grey, chain))
     return out + (black,) if opened else out
 
 
 def threshold_open_pool(
-    grey: torch.Tensor, window: int, open_radius: int, ds: int, opened: bool = False
+    grey: torch.Tensor, window: int, open_radius: int, ds: int, opened: bool = False,
+    chain: bool = False,
 ):
     """(coarse, near, level1[, opened]) of (B, H, W) uint8 frames; see the
     module docstring.  CUDA tensors launch the kernel, CPU tensors take
     ``plain``."""
     if grey.device.type == "cpu":
-        return plain(grey, window, open_radius, ds, opened)
+        return plain(grey, window, open_radius, ds, opened, chain)
     if grey.ndim != 3:
         raise ValueError(f"grey: expected (B, H, W), got {tuple(grey.shape)}")
     b, h, w = grey.shape
@@ -148,13 +154,15 @@ def threshold_open_pool(
     near = torch.empty((b, h, w), dtype=torch.bool, device=dev)
     black = torch.empty((b, h, w), dtype=torch.bool, device=dev) if opened else None
     coarse = torch.empty((b, hc, wc), dtype=torch.bool, device=dev)
-    level1 = torch.empty((b, h1, w1), dtype=torch.float32, device=dev)
+    level1 = torch.empty((b, h1, w1), dtype=torch.bfloat16 if chain else torch.float32,
+                         device=dev)
     err = _build.fn("a3_frontend")(
         g,
         near.data_ptr(),
         None if black is None else black.data_ptr(),
         coarse.data_ptr(),
         level1.data_ptr(),
+        int(chain),
         b, h, w, window, open_radius, ds, th, tw, hc, wc, h1, w1,
         _build.stream(),
     )

@@ -82,7 +82,9 @@ def warp_decode(
     mark_size: int,
 ):
     """grey (B, H, W) u8 is pyramid level 0 and ``uppers`` the padded
-    float32 levels 1..L-1; H (B, K, 3, 3) f32; lvl/tlx/tly (B, K) int32
+    bfloat16 levels 1..L-1 of the chain (``rectify.level1_plane(grey,
+    chain=True)`` and ``rectify.upper_levels``); H (B, K, 3, 3) f32;
+    lvl/tlx/tly (B, K) int32
     from ``rectify.warp_windows``; valid (B, K) bool.  Returns (samples,
     levels, grids); CUDA tensors launch the kernel, CPU tensors take
     ``plain``."""
@@ -95,9 +97,9 @@ def warp_decode(
     ptrs = (ctypes.c_longlong * max(1, len(uppers)))()
     dims = (ctypes.c_int * max(2, 2 * len(uppers)))()
     for i, u in enumerate(uppers):
-        if not (u.is_cuda and u.dtype == torch.float32 and u.is_contiguous()
+        if not (u.is_cuda and u.dtype == torch.bfloat16 and u.is_contiguous()
                 and u.dim() == 3 and u.shape[0] == b):
-            raise ValueError(f"level {i + 1}: expected a contiguous float32 CUDA tensor "
+            raise ValueError(f"level {i + 1}: expected a contiguous bfloat16 CUDA tensor "
                              f"(B={b}, h, w), got {u.dtype} {tuple(u.shape)} on {u.device}")
         ptrs[i] = u.data_ptr()
         dims[2 * i], dims[2 * i + 1] = u.shape[1], u.shape[2]

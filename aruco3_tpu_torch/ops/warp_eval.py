@@ -9,8 +9,9 @@ sample coordinates ux, uy (N, S^2) float32, both return the samples
 
 with wx = max(0, 1 - |ux - x|) for x in 0..63 and wy the same in y: zero
 weight outside the window.  Counterpart of ``aruco3_tpu/ops/warp_pallas.py``
-``warp_eval``, in float32 where the TPU kernel rounds wx and the windows to
-bfloat16.
+``warp_eval``, bit for bit: wx and the windows rounded to bfloat16, wy, the
+row sums and the blend float32.  A product of two bfloat16 values is exact
+in float32, so each row sum of two taps rounds once whatever the order.
 """
 
 from __future__ import annotations
@@ -26,13 +27,18 @@ count = Counter()
 
 
 def plain(windows: torch.Tensor, ux: torch.Tensor, uy: torch.Tensor) -> torch.Tensor:
-    """The dense form: (N, S^2, 64) weight planes, ``t = wx @ windows^T``,
+    """The dense form: (N, S^2, 64) weight planes, ``t = wx @ windows^T``
+    with wx and the windows rounded to bfloat16 (accumulated in float32),
     then the row sum weighted by wy, in float32."""
     count.plain_calls += 1
+
+    def bf16(x):
+        return x.to(torch.bfloat16).to(torch.float32)
+
     j = torch.arange(rectify.WARP_WIN, dtype=torch.float32, device=windows.device)
-    wx = torch.clamp(1.0 - torch.abs(ux[..., None] - j), min=0.0)
+    wx = bf16(torch.clamp(1.0 - torch.abs(ux[..., None] - j), min=0.0))
     wy = torch.clamp(1.0 - torch.abs(uy[..., None] - j), min=0.0)
-    t = torch.bmm(wx, windows.transpose(1, 2))  # t[n, s, y]
+    t = torch.bmm(wx, bf16(windows).transpose(1, 2))  # t[n, s, y]
     return (wy * t).sum(dim=-1)
 
 

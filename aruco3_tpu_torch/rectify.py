@@ -3,10 +3,19 @@
 
 The warp samples each candidate's S x S patch bilinearly from one 64-px
 window of one pyramid level, chosen from the quad's bounding box, exactly
-as the JAX package's pyramid warp (``warp_patches_mxu``) chooses them.  It
-evaluates the separable bilinear weights in float32; the JAX XLA warp
-rounds weights and its row contraction to bfloat16, so its samples differ
-from these by up to ~2 grey (a stated deviation; decoded bits agree).
+as the JAX package's pyramid warps choose them.  Each route samples what
+the JAX TPU kernels of that route sample:
+
+* refine route (kernel 4, ``warp_samples``): the bfloat16 chain pyramid
+  of ``build_packed_pyramid`` (``level1_plane(..., chain=True)``, then
+  ``upper_levels``), column weights rounded to bfloat16, row weights and
+  the blend float32, as the gather warp (``warp_patches_dma``) samples;
+* tail route (kernel 8, ``warp_patches_mxu``): the exact float32 pyramid
+  of ``build_pyramid``, windows and column weights rounded to bfloat16,
+  as the Pallas kernel ``warp_eval`` samples.
+
+The JAX XLA warp (``warp_patches_mxu`` there) rounds its row contraction
+to bfloat16 too and differs from both by up to ~2 grey.
 
 The plain functions here are batched over a leading axis.  The on-card
 warp+decode kernel (``ops.warp_decode``) computes the same samples and
@@ -104,11 +113,27 @@ def _half(padded: torch.Tensor) -> torch.Tensor:
     )
 
 
-def level1_plane(grey: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) u8 -> (B, ph0/2, pw0/2) f32: 2x2 means of the zero-padded
-    level 0 (exact in float32)."""
+def _half_chain(padded: torch.Tensor) -> torch.Tensor:
+    """One step of the JAX package's ``build_packed_pyramid`` chain (and of
+    its frontend kernel's level 1): row pairs summed in float32 and rounded
+    to bfloat16, then 0.25-weighted column pairs summed in float32 and
+    rounded to bfloat16.  In bfloat16 arithmetic, which adds in float32 and
+    rounds once: the sums of two bfloat16 grey values are exact in
+    float32, and scaling by 0.25 commutes with the rounding."""
+    x = padded.to(torch.bfloat16)
+    r = x[..., 0::2, :] + x[..., 1::2, :]
+    return (r[..., 0::2] + r[..., 1::2]) * 0.25
+
+
+def level1_plane(grey: torch.Tensor, chain: bool = False) -> torch.Tensor:
+    """(B, H, W) u8 -> (B, ph0/2, pw0/2) level 1 of the zero-padded level 0:
+    the exact 2x2 means in float32 (``build_pyramid``'s, the tail route's),
+    or with ``chain`` the bfloat16 chain of ``build_packed_pyramid`` (the
+    refine route's)."""
     h, w = grey.shape[-2], grey.shape[-1]
     (ph, pw), = pyramid_level_shapes(h, w, 1)
+    if chain:
+        return _half_chain(_pad_to(grey, ph, pw))
     return _half(_pad_to(grey.to(torch.float32), ph, pw))
 
 
@@ -126,13 +151,17 @@ def build_pyramid(grey: torch.Tensor, levels: int) -> list[torch.Tensor]:
 
 
 def upper_levels(level1: torch.Tensor, shapes) -> list[torch.Tensor]:
-    """Padded pyramid levels 1..L-1 from the unpadded level-1 plane."""
+    """Padded pyramid levels 1..L-1 from the unpadded level-1 plane, each
+    halved from the one below as ``level1`` was made: a bfloat16 plane by
+    the chain (``build_packed_pyramid``), a float32 one by exact means
+    (``build_pyramid``)."""
+    half = _half_chain if level1.dtype == torch.bfloat16 else _half
     out = []
     img = level1
     for ph, pw in shapes[1:]:
         padded = _pad_to(img, ph, pw)
         out.append(padded)
-        img = _half(padded)
+        img = half(padded)
     return out
 
 
@@ -234,11 +263,12 @@ def warp_samples(
     patch_size: int,
 ) -> torch.Tensor:
     """Bilinear patch samples, plain version of the warp kernel: column
-    weights rounded to bfloat16 as the JAX warps round them, row weights
-    and the blend float32.
+    weights rounded to bfloat16, row weights and the blend float32, as the
+    JAX gather warp (``warp_gather``'s wxT) samples.
 
     grey (B, H, W) u8 is level 0 (zero outside the image); uppers are the
-    padded float32 levels 1..L-1; H (B, K, 3, 3); lvl/tlx/tly (B, K) from
+    padded levels 1..L-1 (bfloat16, from ``level1_plane(grey, chain=True)``
+    and ``upper_levels``); H (B, K, 3, 3); lvl/tlx/tly (B, K) from
     ``warp_windows``.  Returns (B, K, S*S) float32.
     """
     bsz, k = lvl.shape
@@ -246,10 +276,9 @@ def warp_samples(
     ux, uy = window_coords(sx, sy, lvl, tlx, tly)
     x0, x1, wx0, wx1, inx0, inx1 = _taps(ux)
     y0, y1, wy0, wy1, iny0, iny1 = _taps(uy)
-    # The JAX package's warps both round the column weights to bfloat16
-    # (warp_gather's wxT, warp_patches_mxu's wx); the row weights stay
-    # float32 in warp_gather.  A sample near a cell's Otsu level decodes
-    # differently otherwise.
+    # The gather warp rounds the column weights to bfloat16 (its wxT) and
+    # keeps the row weights float32.  A sample near a cell's Otsu level
+    # decodes differently otherwise.
     wx0 = wx0.to(torch.bfloat16).to(torch.float32)
     wx1 = wx1.to(torch.bfloat16).to(torch.float32)
 
@@ -309,7 +338,7 @@ def warp_setup(grey: torch.Tensor, level1: torch.Tensor, H: torch.Tensor, quads:
     counterpart of the JAX package's ``rectify._warp_setup``.
 
     grey (B, H, W) u8; level1 (B, ph0/2, pw0/2) f32, the frontend's
-    unpadded pyramid level 1; H (B, K, 3, 3); quads (B, K, 4, 2).  Returns
+    unpadded exact pyramid level 1; H (B, K, 3, 3); quads (B, K, 4, 2).  Returns
     (windows (B, K, 64, 64) f32, ux, uy (B, K, S*S) f32, bad (B, K, S*S)
     bool), the coordinates from ``window_coords``.  Each window is sliced
     from the plane of its

@@ -40,7 +40,14 @@ Phases, each printing lines of numbers:
    ``rank_roots:inner`` and ``fit_lanes:inner``), after a line with the
    cluster size of kernel 5 and the lane group of kernel 6 per plane.
    Kernel 8 also decodes its samples and those of its plain version into
-   the same cell grids;
+   the same cell grids.  Kernels 1, 4 and 8 are held to their plain
+   versions bit for bit (max abs error 0.0), the others to 1e-3.  Then
+   kernels 1 (refine mode: the bfloat16 chain's level 1, and level 2 by
+   ``rectify.upper_levels``), 4 (samples and cell grids at pyramid levels
+   0-3) and 8 on seeded probes, bit for bit against the JAX TPU kernels'
+   outputs (``tests/torch_golden/kernels.npz``: ``build_packed_pyramid``,
+   the gather warp ``warp_patches_dma`` and ``warp_eval``, in interpret
+   mode);
 4. paths: each path's graph captured, then replayed once with every
    launch count set to 0 just before and read just after: every kernel of
    the path launched, no other and no plain version called; the graph's
@@ -56,7 +63,9 @@ Phases, each printing lines of numbers:
    lane against the JAX package's results on the same frames
    (``tests/torch_golden/paths.npz``; ``tools/torch_golden.py`` compares:
    integers bit-exact, fit-corner ties accepted and counted, poses within
-   ``tests/test_pose.py``'s tolerances);
+   ``tests/test_pose.py``'s tolerances), every field a warp decides held
+   to the decode of JAX's quads by the Pallas warp of the path's route;
+   lanes where JAX's XLA warp decodes otherwise are printed and counted;
 5. timing: detect + pose in frames/s (landscape, portrait and noref at
    batch 128, dense at 16, small at 512), eager and graphed in turns
    (eager, graph, graph, eager); the graph's capture ms, kernel nodes,
@@ -98,16 +107,21 @@ Phases 6-11 drive the other entry points, each once:
    noise drawn per 8K pixel: 4320x7680, ds 40):
    outputs equal to the eager step's (integers bit for bit, floats 0.0),
    ids of ``Detector.detect`` with corners within 1 px, every truth id
-   found, on the 8K frame ``Detector.detect`` held lane by lane against
-   the JAX package's (``tests/torch_golden/frame_8k.npz``), kernels 2
+   found, on both frames ``Detector.detect`` held lane by lane against
+   the JAX record of its route's Pallas warp and the step against that
+   of the tail warp (``tests/torch_golden/frame_8k.npz``; a lane the two
+   records decode differently is printed and left out of the id
+   comparison), kernels 2
    (labels), 7, 3 and 8 launched a replay and not kernel 1; ms per frame
    eager and graphed in turns, device ms, idle
    share, the graphs' capture ms, kernel nodes and pools, and
    ``Detector.detect``'s graph on the same frame.  Then the 1080p frame
-   as 4 row bands in this process through ``detect_from_masks``, and
-   kernels 3 and 8 on that route against their plain versions;
+   as 4 row bands in this process through ``detect_from_masks`` (held
+   to the frame's tail-warp record too), and kernels 3 and 8 on that
+   route against their plain versions;
 10. detect_arrays: kernel 1's opened mask against its plain version, and
-    ``detect_arrays`` against ``Detector.detect``;
+    ``detect_arrays`` against ``Detector.detect``, each held to its
+    route's JAX record of the frame (the tail warp's, the refine warp's);
 11. examples: ``examples/torch_pose_accuracy_sim.py``'s ``simulate`` for
     its 24 views on the card (translation and normal-axis error: mean,
     p95, max), every pose found finite, every view's ids equal to those
@@ -119,7 +133,8 @@ Phases 6-11 drive the other entry points, each once:
     synthesized 800x600 scene, which must find its marker.
 
 Then a ``[jax records]`` line a phase (frames, scenes or views compared and
-equal, ties accepted, differences), one JSON line with the kernels, the
+equal, ties accepted, differences, lanes where JAX's XLA warp and the
+Pallas warp decode apart), one JSON line with the kernels, the
 ``nvidia-smi`` line, and the last line ``{"ok": true, "device": {...}}``.
 Imports no JAX.  The inputs come from ``tools/torch_golden.py``; the run
 stops if a JAX record is missing, if a frame's sha256 differs from the
@@ -162,6 +177,9 @@ LANDSCAPE_HW, DICT_NAME, MARKER_MM = golden.LANDSCAPE_HW, golden.DICT_NAME, gold
 NOREF_TOL_PX = 12.0
 # Phase-3 tag of a kernel's call on the inner label plane (dense: kernels 5, 6).
 INNER = ":inner"
+# Kernels held to their plain versions (and to the JAX TPU kernels' records,
+# ``kernel_records``) bit for bit.
+EXACT_KERNELS = ("frontend", "warp_decode", "warp_eval")
 # Phase-5 batch of each path.
 BATCHES = {"landscape": 128, "portrait": 128, "dense": 16, "noref": 128, "small": 512}
 HBM_BYTES_PER_S = 3.35e12
@@ -318,10 +336,12 @@ def stage_inputs(frames, det):
 
     params, min_edge, min_sep, ds = det.geometry(*frames.shape[1:])
     wn = segment.refine_window_size(params, ds)
-    args = {"frontend": (frames, det.config.threshold_window, params.open_radius, ds)}
+    tail = detector.tail_route(params, ds)
+    # Level 1 as the route takes it: the bfloat16 chain on the refine route.
+    args = {"frontend": (frames, det.config.threshold_window, params.open_radius, ds, False,
+                         not tail)}
     coarse, near, level1 = frontend.threshold_open_pool(*args["frontend"])
     k1, k2 = params.max_candidates, params.max_inner_candidates
-    tail = detector.tail_route(params, ds)
     if not tail and detector.fit_route(coarse.shape[1], coarse.shape[2], k1, k2) == "fused":
         args["coarse_fit"] = (coarse, params, ds)
         fit1, fit2, ic = coarse_fit.coarse_fit(*args["coarse_fit"])
@@ -498,11 +518,35 @@ def compare_kernels(path, args, params, tail=None) -> dict:
         counts.pop("valid_lanes_x", None)
         log(f"kernel {name}", path=path, max_abs_err=err, **counts)
         require(sum(counts.values()) == 0, f"{name} ({path}): outputs differ from the plain version")
-        limit = 1e-3 if name != "frontend" else 0.0
+        limit = 0.0 if name in EXACT_KERNELS else 1e-3
         require(err <= limit, f"{name} ({path}): max abs error {err} above {limit}")
         out[name] = (err, *work(kernel_of(name), a, got))
     torch.cuda.synchronize()
     return out
+
+
+def kernel_records() -> None:
+    """Phase 3 against the JAX TPU kernels (``tests/torch_golden/
+    kernels.npz``, made by ``tools/torch_make_golden.py`` on the probes of
+    ``golden.kernel_probes``): kernel 1's refine-mode level 1 and the
+    chain's level 2 (``rectify.upper_levels``) against
+    ``build_packed_pyramid``'s; kernel 4's samples and cell grids at
+    levels 0-3 against the gather warp ``warp_patches_dma`` (its fused
+    decode), through the recorded homographies; kernel 8 against
+    ``warp_pallas.warp_eval`` (``golden.port_kernel_outputs`` on the
+    card).  Each bit for bit; any difference fails."""
+    rec = golden.load("kernels")
+    got = golden.port_kernel_outputs("cuda")
+    log("kernel probes", frame="x".join(map(str, golden.PROBE_HW)),
+        lanes=got["levels"].size, levels=sorted(set(got["levels"].ravel().tolist())),
+        windows=golden.PROBE_WINDOWS)
+    for key in ("level1", "level2", "warp_samples", "warp_grids", "warp_eval"):
+        g, want = got[key], rec[key]
+        require(g.shape == want.shape, f"{key}: shape {g.shape} against the record's {want.shape}")
+        diff = np.abs(g.astype(np.float64) - want.astype(np.float64))
+        log(f"kernel {key} vs jax tpu kernel", mismatch=int((diff != 0).sum()), of=diff.size,
+            max_abs_err=float(diff.max()))
+        require(not diff.any(), f"{key}: differs from the JAX TPU kernel's record")
 
 
 def label_rounds(params) -> int:
@@ -746,10 +790,10 @@ def tail_timing(det, frames, card, small_args) -> None:
         patches = rectify.warp_patches_mxu(grey, level1, H, quads, s)
         return rectify.otsu_cells(patches.reshape(-1, s, s), m)
 
-    def kernel4():
+    def kernel4():  # on the refine route's chain levels
         lvl, tlx, tly = rectify.warp_windows(quads, shapes)
-        return warp_decode.warp_decode(grey, rectify.upper_levels(level1, shapes),
-                                       H.contiguous(), lvl, tlx, tly, valid, s, m)
+        uppers = rectify.upper_levels(rectify.level1_plane(grey, chain=True), shapes)
+        return warp_decode.warp_decode(grey, uppers, H.contiguous(), lvl, tlx, tly, valid, s, m)
 
     tail_ms = cuda_ms(tail_warp, reps=5)
     k4_ms = cuda_ms(kernel4, reps=5)
@@ -924,15 +968,18 @@ def path_inputs():
 
 def jax_report(phase: str, rep, totals: dict) -> None:
     """Logs a comparison with the JAX records (counts, each accepted tie
-    on a line of its own, the first differences) and adds its counts to
-    ``totals``; fails on any difference."""
+    and each lane where JAX's XLA warp decodes otherwise than the Pallas
+    warp the port is held to on a line of its own, the first differences)
+    and adds its counts to ``totals``; fails on any difference."""
     log(f"{phase} vs jax", **rep.counts())
     for item, lane, fields in rep.ties:
         log(f"{phase} vs jax tie accepted", item=item, lane=lane, fields=",".join(fields))
+    for item, lane in rep.warp_split:
+        log(f"{phase} vs jax xla warp apart", item=item, lane=lane)
     for d in rep.differences[:20]:
         print(f"[{phase} vs jax difference] {d}", flush=True)
     t = totals.setdefault(phase.split()[0], {"compared": 0, "equal": 0, "ties_accepted": 0,
-                                             "differences": 0})
+                                             "differences": 0, "xla_warp_lanes_apart": 0})
     for k in t:
         t[k] += rep.counts()[k]
     require(not rep.differences, f"{phase}: {len(rep.differences)} differences from the JAX records")
@@ -1266,13 +1313,23 @@ def counted(path, fn, kernels):
     return out
 
 
-def same_markers(path, out, single) -> float:
-    """The valid ids of a single-frame output against ``Detector.detect``'s
-    markers, corners within 1 px; returns the worst corner difference."""
-    valid = out["marker_valid"].cpu().numpy()
-    got = sorted((int(i), c.tolist()) for i, c, v in zip(
-        out["marker_id"].cpu().numpy(), out["marker_corners"].cpu().numpy(), valid) if v)
-    ref = sorted((m.id, [list(p) for p in m.corners]) for m in single.markers)
+def same_markers(path, out, ref, apart=()) -> float:
+    """The valid ids of a single-frame output against those of
+    ``Detector.detect``'s (``ref``, a frame of ``detect_batch``), corners
+    within 1 px; returns the worst corner difference.  Lanes in ``apart``,
+    where the JAX records of the two routes' Pallas warps decode
+    differently (the spatial step decodes through kernel 8, the detector
+    through kernel 4; each side is held to its own record beforehand), are
+    printed and left out."""
+    if apart:
+        log(f"{path} lanes apart", lanes=list(apart))
+
+    def markers(o):
+        return sorted((int(i), c.tolist()) for k, (i, c, v) in enumerate(zip(
+            o["marker_id"].cpu().numpy(), o["marker_corners"].cpu().numpy(),
+            o["marker_valid"].cpu().numpy())) if v and k not in apart)
+
+    got, ref = markers(out), markers(ref)
     require([i for i, _ in got] == [i for i, _ in ref],
             f"{path}: ids {[i for i, _ in got]} against {[i for i, _ in ref]}")
     worst = max((float(np.abs(np.array(a) - np.array(b)).max()) for (_, a), (_, b) in zip(got, ref)),
@@ -1281,20 +1338,45 @@ def same_markers(path, out, single) -> float:
     return worst
 
 
-def spatial_size(label, det, frame, truth_ids, card, record=None, totals=None) -> None:
+def batched(frame_out: dict) -> dict:
+    """A single-frame output with a batch axis of 1 (for the comparator)."""
+    return {k: v[None] for k, v in frame_out.items() if hasattr(v, "shape")}
+
+
+def spatial_records(label, det, frame, rec, outs, totals) -> tuple:
+    """``Detector.detect``'s lanes on ``frame`` held to the JAX record of
+    the frame's refine-route Pallas warp, and each single-frame output of
+    the tail warp's route in ``outs`` (name -> output) to its tail-warp
+    record (``golden.compare_scenes``); returns the lanes where the two
+    records decode differently."""
+    import torch
+
+    grey = torch.from_numpy(frame).cuda()
+    fits = lambda k: golden.port_fits(det, frame[None])  # noqa: E731
+    jax_report(f"spatial {label} detect", golden.compare_scenes(
+        label, rec, [frame], [det.detect_batch(grey[None])], fits), totals)
+    for name, out in outs.items():
+        jax_report(f"spatial {label} {name}", golden.compare_scenes(
+            label, rec, [frame], [batched(out)], fits, decode="tail"), totals)
+    return tuple(golden.scene_lanes_apart(rec, 0, "pallas/", "tail/"))
+
+
+def spatial_size(label, det, frame, truth_ids, card, record, totals) -> None:
     """Phase 9 at one frame size: ``detect_spatial`` at NCCL world size 1
     through its band and masks graphs (captured first), one replay with
     the counts set to 0 just before and read just after, its outputs
     against the eager step's (``graphs=False``) and its ids and corners
-    against ``Detector.detect``'s, every truth id found, and
-    ``Detector.detect``'s lanes against the JAX record of the frame where
-    ``record`` is given (``golden.compare_scenes``); then ms per frame,
+    against ``Detector.detect``'s, every truth id found, and both held to
+    the JAX record of the frame (``spatial_records``: ``Detector.detect``
+    to its refine-route Pallas warp's decode, the step to the tail
+    warp's); then ms per frame,
     eager and graphed in turns (eager, graph, graph, eager; CUDA events),
     device ms, idle share and device operations per frame of each
     (torch.profiler), the two graphs' capture ms, kernel nodes and pool
     growth, and ``Detector.detect``'s graph on the same frame."""
     import torch
 
+    from aruco3_tpu_torch.detector import frame_of
     from aruco3_tpu_torch.parallel import spatial
 
     grey = torch.from_numpy(frame).cuda()
@@ -1312,11 +1394,9 @@ def spatial_size(label, det, frame, truth_ids, card, record=None, totals=None) -
     launches = sum(c.launches for c in counters().values())
     graph_vs_eager(f"spatial {label}", out, eager())
     single = det.detect(frame)
-    worst = same_markers(f"spatial {label}", out, single)
-    if record is not None:
-        jax_report(f"spatial {label}", golden.compare_scenes(
-            label, record, [frame], [det.detect_batch(grey[None])],
-            lambda k: golden.port_fits(det, frame[None])), totals)
+    apart = spatial_records(label, det, frame, record, {"step": out}, totals)
+    worst = same_markers(f"spatial {label}", out, frame_of(det.detect_batch(grey[None]), 0),
+                         apart)
     ids = {m.id for m in single.markers}
     require(truth_ids <= ids, f"spatial {label}: truth ids {sorted(truth_ids - ids)} missed")
     e1 = cuda_ms(eager, SPATIAL_REPS)
@@ -1352,12 +1432,13 @@ def spatial_size(label, det, frame, truth_ids, card, record=None, totals=None) -
 
 def spatial_phase(det, scene, truth, card, record_8k, totals) -> None:
     """Phase 9: ``spatial_size`` on the 1080p landscape frame and on the
-    8K frame (``golden.frame_8k``: 4320x7680, ds 40; ``Detector.detect``
-    held against the JAX record ``record_8k``); then the 1080p frame as 4
-    row bands in this process (each band's halo cut from the frame, as
-    the exchange delivers it) through ``detect_from_masks`` eagerly,
-    against ``Detector.detect``, with the masks route's launches; kernels
-    3 and 8 on that route against their plain versions."""
+    8K frame (``golden.frame_8k``: 4320x7680, ds 40), each held to its
+    JAX record in ``record_8k``; then the 1080p frame as 4 row bands in
+    this process (each band's halo cut from the frame, as the exchange
+    delivers it) through ``detect_from_masks`` eagerly, against
+    ``Detector.detect`` and the frame's tail-warp record, with the masks
+    route's launches; kernels 3 and 8 on that route against their plain
+    versions."""
     import torch
 
     from aruco3_tpu_torch import segment
@@ -1365,10 +1446,10 @@ def spatial_phase(det, scene, truth, card, record_8k, totals) -> None:
     from aruco3_tpu_torch.parallel import sharding, spatial
 
     truth_ids = {mid for mid, _ in truth}
-    spatial_size("1080p", det, scene, truth_ids, card)
+    rec_1080p = golden.subset(record_8k, "1080p")
+    spatial_size("1080p", det, scene, truth_ids, card, rec_1080p, totals)
     spatial_size("8K", det, golden.frame_8k(det.dictionary), truth_ids, card,
                  golden.subset(record_8k, "8k"), totals)
-    single = det.detect(scene)
     h, w = scene.shape
     grey = torch.from_numpy(scene).cuda()
     params, min_edge, min_sep, ds = sharding.parallel_geometry(det.config, h, w)
@@ -1385,20 +1466,24 @@ def spatial_phase(det, scene, truth, card, record_8k, totals) -> None:
     bands = counted("spatial bands", lambda: frame_of(detect_from_masks(
         grey[None], black[None], coarse[None], det.dictionary, det.config, params, min_edge,
         min_sep, ds), 0), MASKS_KERNELS)
-    worst_b = same_markers("spatial bands", bands, single)
+    apart = spatial_records("1080p", det, scene, rec_1080p, {"bands": bands}, totals)
+    worst_b = same_markers("spatial bands", bands, frame_of(det.detect_batch(grey[None]), 0),
+                           apart)
     log("spatial bands", backend="nccl", world=1, bands=BANDS, halo=halo,
         bands_worst_corner_diff_px=worst_b)
     args, params, tail = masks_stage_inputs(grey[None], black[None], coarse[None], det)
     compare_kernels("spatial", args, params, tail)
 
 
-def detect_arrays_phase(det, scene) -> None:
+def detect_arrays_phase(det, scene, record, totals) -> None:
     """Phase 10: kernel 1's opened black mask (and its other outputs)
     against the plain version on the landscape frame, and
-    ``detector.detect_arrays`` against ``Detector.detect``."""
+    ``detector.detect_arrays`` (the masks route: the tail warp) against
+    ``Detector.detect``, each held to its route's JAX record of the frame
+    (``spatial_records``)."""
     import torch
 
-    from aruco3_tpu_torch.detector import detect_arrays
+    from aruco3_tpu_torch.detector import detect_arrays, frame_of
     from aruco3_tpu_torch.ops import frontend
 
     h, w = scene.shape
@@ -1413,7 +1498,8 @@ def detect_arrays_phase(det, scene) -> None:
     out = counted("detect_arrays", lambda: detect_arrays(
         grey, det.dictionary, det.config, params, min_edge, min_sep, ds),
         ("frontend",) + MASKS_KERNELS)
-    worst = same_markers("detect_arrays", out, det.detect(scene))
+    apart = spatial_records("1080p", det, scene, record, {"detect_arrays": out}, totals)
+    worst = same_markers("detect_arrays", out, frame_of(det.detect_batch(grey[None]), 0), apart)
     log("detect_arrays", opened_pixels=int(got[3].sum()), worst_corner_diff_px=worst, **mism)
 
 
@@ -1540,6 +1626,7 @@ def run(reference, pose_cpu) -> int:
         args, tail = stage_inputs(torch.from_numpy(frames).cuda(), d)
         args_of[path] = args
         phase3[path] = compare_kernels(path, args, d.geometry(*frames.shape[1:])[0], tail)
+    kernel_records()
 
     # Phase 4: each path with its own counts.
     launches_of = {}
@@ -1633,7 +1720,8 @@ def run(reference, pose_cpu) -> int:
         timed("spatial", spatial_phase, det, scene, truths["landscape"], card, record_8k, totals)
     finally:
         dist.destroy_process_group()
-    timed("detect_arrays", detect_arrays_phase, det, scene)
+    timed("detect_arrays", detect_arrays_phase, det, scene, golden.subset(record_8k, "1080p"),
+          totals)
     timed("examples", examples_phase, pose_cpu, pose_cpu_s, orbit_records, totals)
     log("phases 6-11", **phase_s)
     for phase, counts in totals.items():

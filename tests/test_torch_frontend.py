@@ -1,5 +1,6 @@
 """Twin tests of the port's frontend (luma, adaptive threshold, opening,
-pooling, near mask, pyramid level 1), through kernel 1's plain version."""
+pooling, near mask, pyramid level 1 in both modes), through kernel 1's
+plain version."""
 
 import json
 import os
@@ -7,11 +8,12 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from aruco3_tpu import frontend as jfrontend
 from aruco3_tpu import rectify as jrectify
 from aruco3_tpu import segment as jsegment
-from aruco3_tpu_torch import frontend
+from aruco3_tpu_torch import frontend, rectify
 from aruco3_tpu_torch.ops import frontend as k1
 from torch_twin import n, noisy_blocks, t
 
@@ -71,3 +73,23 @@ def test_frontend_plain_matches_jax(rng, ds):
         lvl1 = np.asarray(jrectify.build_pyramid(g, 2)[1])
         h1, w1 = level1.shape[1:]
         np.testing.assert_array_equal(n(level1[b]), lvl1[:h1, :w1])
+
+
+@pytest.mark.parametrize("shape", [(240, 320), (37, 53)])
+def test_frontend_plain_chain_level1_matches_packed_pyramid(rng, shape):
+    """The refine route's level 1 (``chain=True``) is bfloat16 and equals
+    level 1 of ``build_packed_pyramid`` bit for bit, which the JAX
+    frontend kernel's ``emit_level1`` reproduces (``tests/
+    test_pallas_kernels.py``); the other outputs are those of the exact
+    mode."""
+    grey = noisy_blocks(rng, 2, *shape)
+    exact = k1.plain(t(grey), 7, 2, 6)
+    coarse, near, level1 = k1.plain(t(grey), 7, 2, 6, chain=True)
+    assert level1.dtype == torch.bfloat16 and level1.shape == exact[2].shape
+    np.testing.assert_array_equal(n(coarse), n(exact[0]))
+    np.testing.assert_array_equal(n(near), n(exact[1]))
+    levels = max(2, rectify.num_levels(*shape))
+    canvas, offsets, shapes = jrectify.build_packed_pyramid(jnp.asarray(grey), levels)
+    (ph, pw), h1, w1 = shapes[1], *level1.shape[1:]
+    ref = np.asarray(canvas.astype(jnp.float32))[:, offsets[1] : offsets[1] + ph, :pw]
+    np.testing.assert_array_equal(n(level1.to(torch.float32)), ref[:, :h1, :w1])

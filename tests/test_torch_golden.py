@@ -1,12 +1,17 @@
 """The JAX records of ``tests/torch_golden/`` and their comparator
 (``tools/torch_golden.py``) on the CPU: the stored records of the small
 path and of the first three ``ARUCO_DEFAULT`` suite scenes come out again
-from the JAX package (two JAX compiles: 4x120x160 with pose, 1x240x320),
+from the JAX package (two JAX compiles: 4x120x160 with pose, 1x240x320,
+and their Pallas-warp decodes in interpret mode: ``warp_eval`` for the
+small path's tail route, the gather warp for the scenes' refine route),
 the port's CPU path on those frames passes the comparator, the stored
-hashes are those of the port's renders, the comparator accepts a fit-corner tie (counted) and refuses a
-swapped id, a pose beyond tolerance, a missing lane, a fit difference that
-is no tie and a wrong hash, and the smoke script and the comparator import
-no JAX."""
+hashes are those of the port's renders, the plain versions of kernels 1,
+4 and 8 equal the JAX TPU kernels' record (``kernels.npz``) bit for bit,
+the comparator accepts a fit-corner tie (counted), holds a lane to the
+Pallas warp's decode where JAX's XLA warp decodes otherwise (counted),
+and refuses a swapped id, a pose beyond tolerance, a missing lane, a fit
+difference that is no tie, a wrong hash and a record without the Pallas
+decode, and the smoke script and the comparator import no JAX."""
 
 import numpy as np
 import pytest
@@ -79,6 +84,19 @@ def test_stored_hashes_are_the_port_renders(which, small, scenes):
     golden.check_hashes(which, rec["hashes"], frames)
 
 
+def test_plain_versions_match_kernel_records():
+    """What phase 3 of ``chip_smoke.py`` holds the kernels to, on the CPU:
+    kernel 1's refine-mode level 1 and the chain's level 2, kernel 4's
+    samples and cell grids at pyramid levels 0-3 (through the recorded
+    homographies) and kernel 8's samples equal the JAX TPU kernels'
+    outputs on the probes bit for bit."""
+    rec = golden.load("kernels")
+    got = golden.port_kernel_outputs("cpu")
+    assert sorted(set(got["levels"].ravel().tolist())) == [0, 1, 2, 3]
+    for key in ("level1", "level2", "warp_samples", "warp_grids", "warp_eval"):
+        np.testing.assert_array_equal(got[key], rec[key], err_msg=key)
+
+
 # ---- the comparator on a made-up frame: 2 lanes, lane 0 a marker.
 SQUARE = np.array([[10.0, 10.0], [30.0, 10.0], [30.0, 30.0], [10.0, 30.0]], np.float32)
 FRAME = np.zeros((1, 8, 8), np.uint8)
@@ -96,6 +114,8 @@ def made_up():
              np.tile(np.array([1.0, 2.0, 300.0], np.float32), (1, 2, 2, 1)),
              np.zeros((1, 2, 2), np.float32))
     rec = golden.batch_record(out, poses)
+    # The Pallas warp's decode, here equal to the XLA warp's.
+    rec.update({f"pallas/{k}": v.copy() for k, v in rec.items() if k not in ("quads", "quad_valid")})
     rec["hashes"] = np.array([golden.frame_hash(FRAME[0])])
     rec["fit_quads"] = quads.copy()
     rec["fit_centroids"] = np.array([[[20.0, 20.0], [60.0, 60.0]]], np.float32)
@@ -152,6 +172,27 @@ def test_comparator_refuses(case, field):
     assert rep.ties == [] and rep.equal == 0
     assert field in {d.field for d in rep.differences}
     assert all(d.where == "made-up" and d.item == 0 for d in rep.differences)
+
+
+@pytest.mark.parametrize("port_id,held", [(8, True), (7, False)])
+def test_comparator_holds_the_pallas_decode(port_id, held):
+    """Where JAX's XLA warp (id 7) and the Pallas warp of the route (id 8)
+    decode a lane differently, the port is held to the Pallas warp's, and
+    the lane is counted either way."""
+    rec, out, poses = made_up()
+    rec["pallas/marker_id"] = np.array([[8, 0]])
+    out["marker_id"] = np.array([[port_id, 0]])
+    rep = golden.compare_batch("made-up", rec, FRAME, out, poses, port_fit(rec["fit_quads"]))
+    assert rep.warp_split == [(0, 0)] and rep.counts()["xla_warp_lanes_apart"] == 1
+    assert (rep.differences == []) == held
+    assert held or {d.field for d in rep.differences} == {"marker_id"}
+
+
+def test_comparator_refuses_a_record_without_pallas_decode():
+    rec, out, poses = made_up()
+    rec = {k: v for k, v in rec.items() if not k.startswith("pallas/")}
+    with pytest.raises(golden.StaleRecord):
+        golden.compare_batch("made-up", rec, FRAME, out, poses)
 
 
 def test_comparator_refuses_a_wrong_hash():

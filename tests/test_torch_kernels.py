@@ -95,6 +95,26 @@ def test_frontend_kernel_matches_plain(shape, ds, window, open_radius):
     assert all(torch.equal(a, b) for a, b in zip(k1.threshold_open_pool(grey, window, open_radius, ds), got))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ds", [((240, 320), 2), ((1080, 1920), 10), ((120, 160), 1),
+                                      ((97, 203), 3), ((40, 50), 2), ((2160, 3840), 20)])
+def test_frontend_kernel_chain_level1_matches_plain(shape, ds):
+    """The refine route's mode: level 1 in bfloat16 by the chain
+    (``rectify.level1_plane(chain=True)``) bit for bit, level 1 padded past
+    the image at 40x50, the other outputs those of the exact mode."""
+    dev = cuda_device()
+    rng = np.random.default_rng(2)
+    grey = torch.from_numpy(noisy_blocks(rng, 2, *shape)).to(dev)
+    got = k1.threshold_open_pool(grey, 7, 2, ds, chain=True)
+    ref = k1.plain(grey, 7, 2, ds, chain=True)
+    assert got[2].dtype == torch.bfloat16
+    for a, b in zip(got, ref, strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    exact = k1.threshold_open_pool(grey, 7, 2, ds)
+    assert torch.equal(got[0], exact[0]) and torch.equal(got[1], exact[1])
+
+
 @pytest.mark.parametrize("shape,window,open_radius,ds", [
     ((1080, 1920), 7, 2, 10), ((1920, 1080), 7, 2, 10), ((2160, 3840), 7, 2, 20),
     ((120, 160), 7, 2, 1), ((97, 203), 7, 2, 3), ((40, 50), 7, 2, 2),
@@ -183,14 +203,15 @@ def test_warp_decode_kernel_matches_plain(shape):
     quads[0, 5] = quads[0, 5, [0, 0, 2, 3]]  # degenerate
     H, hv = rectify.homography_square_to_quad(quads, S)
     shapes = rectify.pyramid_level_shapes(h, w, rectify.num_levels(h, w))
-    uppers = rectify.upper_levels(rectify.level1_plane(grey), shapes)
+    uppers = rectify.upper_levels(k1.threshold_open_pool(grey, 7, 2, 2, chain=True)[2], shapes)
+    assert all(u.dtype == torch.bfloat16 for u in uppers)
     lvl, tlx, tly = rectify.warp_windows(quads, shapes)
     valid = hv.clone()
     valid[1, :3] = False
     args = (grey, uppers, H.contiguous(), lvl, tlx, tly, valid, S, 8)
     gs, gl, gg = k4.warp_decode(*args)
     rs, rl, rg = k4.plain(*args)
-    assert (gs - rs).abs().max() <= 1e-3
+    assert torch.equal(gs, rs)
     assert torch.equal(gl, rl) and torch.equal(gg, rg)
 
 
@@ -284,7 +305,7 @@ def _warp_case(rng, h, w, b, k, dev, s=S):
     quads[0, 1] = quads[0, 1, [0, 0, 2, 3]]
     H, hv = rectify.homography_square_to_quad(quads, s)
     shapes = rectify.pyramid_level_shapes(h, w, rectify.num_levels(h, w))
-    uppers = rectify.upper_levels(rectify.level1_plane(grey), shapes)
+    uppers = rectify.upper_levels(rectify.level1_plane(grey, chain=True), shapes)
     lvl, tlx, tly = rectify.warp_windows(quads, shapes)
     H[0, 2] = torch.tensor([[1.0, 0, 0], [0, 1, 0], [0, 0, 0]])
     H[0, 3] = torch.tensor([[1.0, 0, 12], [0, 1, 10], [0, 0, 1]])
@@ -315,7 +336,7 @@ def test_warp_decode_kernel_levels_and_patches(shape, b, k, m, s):
     gs, gl, gg = k4.warp_decode(*args, s, m)
     rs, rl, rg = k4.plain(*args, s, m)
     assert torch.equal(gl, rl) and torch.equal(gg, rg)
-    assert (gs - rs).abs().max() <= 1e-3
+    assert torch.equal(gs, rs)
     assert not bool(gs[0, 2].any()) and int(gl[0, 2]) == 0
     assert set(gs[0, 3].unique().tolist()) == {0.0, 255.0}
 
@@ -375,9 +396,11 @@ def test_kernels_reject_bad_inputs():
     with pytest.raises(ValueError):
         k3.refine_corners(args[0], args[1], args[2], args[3][..., :1].contiguous(), *args[4:], 10, 28)
     # Kernel 4: more pyramid levels than a frame can have, a patch whose
-    # resize does not fit an SM's shared memory, a level of another type.
+    # resize does not fit an SM's shared memory, levels of another type
+    # (float32: the exact pyramid of the tail route).
     grey, uppers, *rest = _warp_case(np.random.default_rng(6), 240, 320, 1, 5, dev)
-    for levels, s in ((uppers * 11, S), (uppers, 1024), ([u.double() for u in uppers], S)):
+    for levels, s in ((uppers * 11, S), (uppers, 1024), ([u.double() for u in uppers], S),
+                      ([u.float() for u in uppers], S)):
         with pytest.raises(ValueError):
             k4.warp_decode(grey, levels, *rest, s, 8)
 
@@ -619,7 +642,7 @@ def test_warp_eval_kernel_matches_plain(count, s):
     got = k8.warp_eval(*args)
     ref = k8.plain(*args)
     assert got.shape == ref.shape == (count, s * s)
-    assert (got - ref).abs().max() <= 1e-3
+    assert torch.equal(got, ref)  # both round wx and the windows to bfloat16
 
 
 @pytest.mark.parametrize("count", [1, 7, 128, 1152, 4096, 30000])

@@ -5,10 +5,12 @@ plain version of ``ops.warp_eval`` against the JAX Pallas kernel
 ``warp_patches_mxu`` and gather warp ``warp_patches`` against the JAX
 package's.
 
-The JAX kernel rounds its x weights and the windows to bfloat16, the XLA
-warp its weights and row contraction; the port is float32.  So kernel 8
-agrees with the JAX kernel to 1.5 grey and with float64 to 1e-3 grey, and
-the pyramid warps agree to 2.5 grey with equal decoded bits.
+Kernel 8 rounds its x weights and the windows to bfloat16 as the JAX
+kernel does, so it equals the JAX kernel bit for bit, the tail route's
+warp equals ``_warp_setup`` plus the JAX kernel bit for bit, and kernel 8
+agrees to 1e-3 grey with float64 on the same bfloat16-rounded inputs.
+The XLA warp (``warp_patches_mxu``) also rounds its row contraction to
+bfloat16: the pyramid warps agree to 2.5 grey with equal decoded bits.
 """
 
 import functools
@@ -43,16 +45,30 @@ def _coords(rng, count):
     return u.astype(np.float32)
 
 
+def _bf16(x):
+    """float32 numpy values rounded to bfloat16 (half to even), as float64."""
+    return n(t(np.asarray(x, np.float32)).to(torch.bfloat16).to(torch.float64))
+
+
 def _bilinear64(windows, ux, uy):
-    """float64 reference: the dense separable form."""
+    """float64 reference: the dense separable form, on the bfloat16-rounded
+    windows and x weights the kernel evaluates."""
     j = np.arange(WIN, dtype=np.float64)
-    wx = np.maximum(0.0, 1.0 - np.abs(ux.astype(np.float64)[..., None] - j))
+    wx = _bf16(np.maximum(0.0, 1.0 - np.abs(ux.astype(np.float64)[..., None] - j)))
     wy = np.maximum(0.0, 1.0 - np.abs(uy.astype(np.float64)[..., None] - j))
-    t_ = wx @ np.swapaxes(windows.astype(np.float64), 1, 2)
+    t_ = wx @ np.swapaxes(_bf16(windows), 1, 2)
     return (wy * t_).sum(-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_kernel_fn():
+    """The JAX Pallas kernel in interpret mode (one compile per shape)."""
+    return jax.jit(lambda w, x, y: jwarp_eval(w, x, y, interpret=True))
+
+
 def test_warp_eval_plain_matches_jax_kernel():
+    """Bit for bit, on windows that are not bfloat16-exact and coordinates
+    inside, in the edge bands, on the edges and far outside the window."""
     rng = np.random.default_rng(8)
     windows = rng.uniform(0, 255, size=(16, WIN, WIN)).astype(np.float32)
     ux, uy = _coords(rng, 16), _coords(rng, 16)
@@ -60,9 +76,8 @@ def test_warp_eval_plain_matches_jax_kernel():
     got = n(k8.warp_eval(t(windows), t(ux), t(uy)))
     assert (k8.count.launches, k8.count.plain_calls) == (0, 1)
     assert got.shape == (16, S * S) and got.dtype == np.float32
-    ref = np.asarray(jwarp_eval(jnp.asarray(windows), jnp.asarray(ux), jnp.asarray(uy),
-                                interpret=True))
-    assert np.abs(got - ref).max() <= 1.5
+    ref = np.asarray(_jax_kernel_fn()(jnp.asarray(windows), jnp.asarray(ux), jnp.asarray(uy)))
+    np.testing.assert_array_equal(got, ref)
     np.testing.assert_allclose(got, _bilinear64(windows, ux, uy), rtol=0, atol=1e-3)
     # Far outside the window every weight is 0.
     far = (np.abs(ux) > 100) | (np.abs(uy) > 100)
@@ -106,6 +121,35 @@ def test_warp_setup_matches_jax(shape):
             np.testing.assert_array_equal(n(got), np.asarray(want))
     lvl = rectify.warp_windows(t(quads), rectify.pyramid_level_shapes(h, w, levels))[0]
     assert len(set(n(lvl).ravel().tolist())) >= 3
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tail_warp_fn(levels):
+    """The tail route's warp as the JAX TPU kernel computes it:
+    ``_warp_setup`` on the exact pyramid, then the Pallas ``warp_eval``
+    (interpret mode), degenerate samples 0."""
+    def run(g, H, q):
+        windows, ux, uy, bad = jrectify._warp_setup(jrectify.build_pyramid(g, levels), H, q, S)
+        return jnp.where(bad, 0.0, jwarp_eval(windows, ux, uy, interpret=True))
+
+    return jax.jit(run)
+
+
+def test_tail_warp_matches_pallas_warp():
+    """The tail route's samples (``rectify.warp_patches_mxu``: window slices,
+    then kernel 8's plain version) equal ``_warp_setup`` plus the JAX
+    kernel bit for bit, levels 0 to 2, quads over the image's edges and a
+    homography whose w row vanishes on a sample."""
+    rng = np.random.default_rng(9)
+    h, w = 240, 320
+    grey, quads = _frame_and_quads(rng, h, w)
+    H, _ = rectify.homography_square_to_quad(t(quads), S)
+    H[1, 0] = torch.tensor([[1.0, 0.0, 5.0], [0.0, 1.0, 5.0], [1.0, 0.0, -10.0]])
+    got = rectify.warp_patches_mxu(t(grey), rectify.level1_plane(t(grey)), H, t(quads), S)
+    fn = _jax_tail_warp_fn(rectify.num_levels(h, w))
+    for b in range(2):
+        ref = fn(jnp.asarray(grey[b]), jnp.asarray(n(H[b])), jnp.asarray(quads[b]))
+        np.testing.assert_array_equal(n(got[b]).reshape(-1, S * S), np.asarray(ref))
 
 
 def _marker_scene(rng, h, w):

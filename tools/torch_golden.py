@@ -17,7 +17,21 @@ Inputs (numpy, the port's renderer):
   ``ARUCO_MIP_36H12`` and 150 ``APRILTAG_36H11`` at 1920x1080) and the 20
   1080p ``ARUCO_MIP_36H12`` scenes of ``chip_smoke.py``'s phase 6 (seed 5);
 * ``orbit_images``: the 24 views of ``examples/torch_pose_accuracy_sim.py``;
-* ``frame_8k``: phase 9's 4320x7680 frame.
+* ``frame_8k``: phase 9's 4320x7680 frame;
+* ``kernel_probes``: seeded probes of kernels 1, 4 and 8 (a frame, quads
+  at pyramid levels 0-3, windows and window coordinates), whose record
+  (``kernels.npz``) holds the JAX TPU kernels' outputs on them.
+
+Each record holds JAX's CPU route (its warp is the XLA pyramid warp) and,
+under ``pallas/``, the decode of JAX's quads by the Pallas warp of the
+port's route (``held``): the gather warp on the bfloat16 chain pyramid on
+the refine route, ``warp_eval`` on the tail route.  The port is held to
+the latter in every field a warp decides (marker validity, id, code,
+distance, rotation, rotated corners, the decode's stats, poses); quads,
+fits and candidate stats to both, which agree.  The lanes where JAX's two
+warps decode differently are counted and listed (``Report.warp_split``)
+and fail nothing.  Phase 9's frames also hold the tail warp's decode
+(``tail/``), the spatial step's.
 
 Comparison rules (ROADMAP's parity contract):
 
@@ -85,6 +99,15 @@ SCENE_SETS = {
 }
 ORBIT_VIEWS = 24
 SPATIAL_8K_SCALE, SPATIAL_8K_SEED = 4, 8  # the 8K frame's pixel repetition and noise seed
+# The kernel probes: frame, patch side and mark size, lanes a level (0-3),
+# windows, seed.
+PROBE_HW, PROBE_S, PROBE_MARK = (240, 320), 49, 7
+PROBE_LANES, PROBE_WINDOWS, PROBE_SEED = 4, 8, 12
+PROBE_KEYS = ("grey", "quads", "windows", "ux", "uy")
+# Quad sides (px) that land on pyramid levels 0-3 of a PROBE_HW frame.
+PROBE_SIDES = ((12, 36), (62, 76), (122, 150), (250, 300))
+# Record prefixes of the Pallas warps' decodes: the route's own, the tail warp's.
+DECODES = ("pallas", "tail")
 # The integer fields of a batch's outputs, compared on valid lanes.
 MARKER_FIELDS = ("marker_id", "marker_dist", "marker_code", "marker_rot", "marker_corners")
 POSE_KEYS = ("pose_rotations", "pose_translations", "pose_errors")
@@ -141,6 +164,78 @@ def frame_8k(dictionary) -> np.ndarray:
     big = np.repeat(np.repeat(clean, SPATIAL_8K_SCALE, axis=0), SPATIAL_8K_SCALE, axis=1)
     noise = np.random.default_rng(SPATIAL_8K_SEED).standard_normal(big.shape, np.float32)
     return np.clip(big + 2.0 * noise, 0, 255).astype(np.uint8)
+
+
+def kernel_probes() -> dict:
+    """The inputs of ``kernels.npz`` (numpy, from ``PROBE_SEED``): grey
+    (1, 240, 320) u8, dark blocks and noise; quads (1, 4 * PROBE_LANES, 4,
+    2) f32, squares turned and perturbed, PROBE_LANES of each side range
+    of ``PROBE_SIDES`` (pyramid levels 0-3), centred anywhere in the frame;
+    windows (PROBE_WINDOWS, 64, 64) f32 grey values that are not bfloat16
+    values; ux, uy (PROBE_WINDOWS, PROBE_S^2) f32 window coordinates
+    inside, in the edge bands (-1, 0) and (63, 64), on the edges and far
+    outside."""
+    rng = np.random.default_rng(PROBE_SEED)
+    h, w = PROBE_HW
+    img = np.full((h, w), 200.0)
+    for _ in range(12):
+        y0, x0 = rng.integers(0, h - 8), rng.integers(0, w - 8)
+        img[y0 : y0 + rng.integers(4, h // 3), x0 : x0 + rng.integers(4, w // 3)] = rng.uniform(0, 90)
+    grey = np.clip(np.round(img + rng.normal(0, 12, img.shape)), 0, 255).astype(np.uint8)[None]
+    base = np.array([[-0.5, -0.5], [0.5, -0.5], [0.5, 0.5], [-0.5, 0.5]])
+    quads = []
+    for lo, hi in PROBE_SIDES:
+        for _ in range(PROBE_LANES):
+            side, ang = rng.uniform(lo, hi), rng.uniform(0, 2 * np.pi)
+            rot = np.array([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]])
+            # At most 45 degrees off the axes' bounding box, so the side
+            # range keeps its level.
+            rot = rot if abs(np.sin(2 * ang)) < 0.5 else np.eye(2)
+            q = base @ rot.T * side + rng.uniform(-0.02, 0.02, (4, 2)) * side
+            quads.append(q + rng.uniform([0, 0], [w, h]))
+    n = PROBE_WINDOWS * PROBE_S * PROBE_S
+
+    def coords():
+        u = rng.uniform(0.0, 63.0, n)
+        band = rng.integers(0, 6, n)
+        u = np.where(band == 1, rng.uniform(-1.0, 0.0, n), u)
+        u = np.where(band == 2, rng.uniform(63.0, 64.0, n), u)
+        u = np.where(band == 3, rng.choice([-1.0, 0.0, 63.0, 64.0, 62.5], n), u)
+        u = np.where(band == 4, rng.choice([-7.5, 70.25, -1e6, 1e6], n), u)
+        return u.reshape(PROBE_WINDOWS, -1).astype(np.float32)
+
+    return {"grey": grey, "quads": np.array(quads, np.float32)[None],
+            "windows": rng.uniform(0, 255, (PROBE_WINDOWS, 64, 64)).astype(np.float32),
+            "ux": coords(), "uy": coords()}
+
+
+def port_kernel_outputs(device) -> dict:
+    """The port's kernels 1, 4 and 8 on ``kernel_probes`` (their plain
+    versions on the CPU), as ``kernels.npz`` holds the JAX TPU kernels'
+    outputs: kernel 1's refine-mode level 1 and the chain's level 2
+    (``rectify.upper_levels``), kernel 4's samples and cell grids through
+    the recorded homographies, kernel 8's samples; numpy, bfloat16 levels
+    as float32.  Also "levels": the pyramid level of each probe lane."""
+    import torch
+
+    from aruco3_tpu_torch import rectify
+    from aruco3_tpu_torch.ops import frontend, warp_decode, warp_eval
+
+    rec = load("kernels")
+    pr = kernel_probes()
+    check_hashes("kernels", rec["hashes"], [pr[k] for k in PROBE_KEYS])
+    t = {k: torch.from_numpy(v).to(device) for k, v in pr.items()}
+    shapes = rectify.pyramid_level_shapes(*PROBE_HW, rectify.num_levels(*PROBE_HW))
+    uppers = rectify.upper_levels(frontend.threshold_open_pool(t["grey"], 7, 2, 2, chain=True)[2],
+                                  shapes)
+    lvl, tlx, tly = rectify.warp_windows(t["quads"], shapes)
+    samples, _, grids = warp_decode.warp_decode(
+        t["grey"], uppers, torch.from_numpy(rec["H"]).to(device), lvl, tlx, tly,
+        torch.ones_like(lvl, dtype=torch.bool), PROBE_S, PROBE_MARK)
+    out = {"level1": uppers[0].float(), "level2": uppers[1].float(),
+           "warp_samples": samples.reshape(rec["warp_samples"].shape), "warp_grids": grids,
+           "warp_eval": warp_eval.warp_eval(t["windows"], t["ux"], t["uy"]), "levels": lvl}
+    return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def path_specs() -> dict:
@@ -262,6 +357,21 @@ def check_hashes(where: str, hashes, frames) -> None:
         raise StaleRecord(f"{where}: frames {bad} differ from the recorded ones (sha256)")
 
 
+def held(rec: dict, decode: str = "pallas") -> dict:
+    """``rec`` as the port is held to it: every field a warp decides taken
+    from the decode of JAX's quads by the Pallas warp of the port's route
+    (``decode="pallas"``) or by the tail warp (``"tail"``, phase 9's
+    frames).  Raises ``StaleRecord`` if the record holds no such decode."""
+    p = decode + "/"
+    over = {k[len(p):]: v for k, v in rec.items() if k.startswith(p)}
+    if not over:
+        raise StaleRecord(f"the record holds no {decode} decode: make it with "
+                          "tools/torch_make_golden.py")
+    out = {k: v for k, v in rec.items() if k.split("/")[0] not in DECODES}
+    out.update(over)
+    return out
+
+
 def host(tree):
     """Tensors (any device) of nested dicts and tuples as numpy arrays."""
     if isinstance(tree, dict):
@@ -331,7 +441,9 @@ def unpack(rec: dict, prefix: str, k: int, keys=MARKER_KEYS) -> dict:
 def head(rec: dict, n: int) -> dict:
     """A scene set's record cut to its first ``n`` scenes."""
     out = {"hashes": rec["hashes"][:n], "lanes": rec["lanes"]}
-    for prefix, keys in (("", MARKER_KEYS), ("fit/", FIT_KEYS)):
+    parts = [("", MARKER_KEYS), ("fit/", FIT_KEYS)]
+    parts += [(d + "/", MARKER_KEYS) for d in DECODES if f"{d}/offsets" in rec]
+    for prefix, keys in parts:
         offsets = rec[f"{prefix}offsets"][: n + 1]
         out[f"{prefix}offsets"] = offsets
         out.update({prefix + k: rec[prefix + k][: offsets[-1]] for k in keys})
@@ -385,8 +497,10 @@ class Difference:
 @dataclass
 class Report:
     """What one comparison found: items compared and equal, marker lanes
-    compared, accepted ties [(item, lane, fields)], differences, and the
-    largest pose differences (rotation, translation)."""
+    compared, accepted ties [(item, lane, fields)], differences, the
+    lanes where JAX's XLA warp and the held Pallas warp decode differently
+    [(item, lane)] (reported, not held), and the largest pose differences
+    (rotation, translation)."""
 
     where: str
     compared: int = 0
@@ -394,6 +508,7 @@ class Report:
     lanes: int = 0
     ties: list = field(default_factory=list)
     differences: list = field(default_factory=list)
+    warp_split: list = field(default_factory=list)
     rot_max: float = 0.0
     trans_max: float = 0.0
     bench_rot_max: float = 0.0
@@ -402,6 +517,7 @@ class Report:
     def counts(self) -> dict:
         return {"compared": self.compared, "equal": self.equal, "lanes": self.lanes,
                 "ties_accepted": len(self.ties), "differences": len(self.differences),
+                "xla_warp_lanes_apart": len(self.warp_split),
                 "pose_rot_max_abs": self.rot_max, "pose_trans_max_abs": self.trans_max,
                 "bench_pose_rot_max_abs": self.bench_rot_max,
                 "bench_pose_trans_max_abs": self.bench_trans_max}
@@ -446,15 +562,31 @@ def _settle(rep: Report, item: int, diffs: list, fits) -> None:
                         and not (d.lane is None and accepted and d.field.startswith("stats/"))]
 
 
+def batch_lanes_apart(a: dict, b: dict, f: int) -> list:
+    """Lanes of frame ``f`` whose decoded fields differ between two batch
+    records."""
+    lanes = set(np.nonzero(a["marker_valid"][f] != b["marker_valid"][f])[0].tolist())
+    both = a["marker_valid"][f] & b["marker_valid"][f]
+    for key in MARKER_FIELDS:
+        for k in np.nonzero(both)[0]:
+            if not np.array_equal(a[key][f][k], b[key][f][k]):
+                lanes.add(int(k))
+    return sorted(int(k) for k in lanes)
+
+
 def compare_batch(where: str, rec: dict, frames, out, poses=None, fits_of=None) -> Report:
     """A detect batch of ``frames`` (outputs ``out``, poses (rotations,
     translations, errors) or None) against its record ``rec``
-    (``subset(load("paths"), path)``), frame by frame and lane by lane.
-    ``fits_of()`` -> the port's fit quads of the frames (``port_fits``),
-    asked only when a lane differs."""
+    (``subset(load("paths"), path)``; held to its Pallas-warp decode,
+    ``held``), frame by frame and lane by lane.  ``fits_of()`` -> the
+    port's fit quads of the frames (``port_fits``), asked only when a lane
+    differs."""
     check_hashes(where, rec["hashes"], frames)
+    xla, rec = rec, held(rec)
     got = batch_record(out, poses)
     rep = Report(where)
+    for f in range(len(frames)):
+        rep.warp_split += [(f, k) for k in batch_lanes_apart(xla, rec, f)]
     port_fit = []
 
     def fits(f):
@@ -499,7 +631,9 @@ def compare_batch(where: str, rec: dict, frames, out, poses=None, fits_of=None) 
                                                 got[key][f][k].tolist()))
                     elif d > getattr(rep, attr):
                         setattr(rep, attr, d)
-                    if "bench_" + key in rec:  # reported, not held
+                    if "bench_" + key in rec and (f, int(k)) not in rep.warp_split:
+                        # Reported, not held; the bench program decodes
+                        # with the XLA warp.
                         d = float(np.abs(got[key][f][k].astype(np.float64)
                                          - rec["bench_" + key][f][k].astype(np.float64)).max())
                         setattr(rep, "bench_" + attr, max(getattr(rep, "bench_" + attr), d))
@@ -507,18 +641,27 @@ def compare_batch(where: str, rec: dict, frames, out, poses=None, fits_of=None) 
     return rep
 
 
-def compare_scenes(where: str, rec: dict, frames, outs, fits_of=None) -> Report:
+def scene_lanes_apart(rec: dict, k: int, a: str = "", b: str = "pallas/") -> list:
+    """Lanes of scene ``k`` whose markers differ between two decodes of a
+    scene record (prefixes ``a`` and ``b``; "" is JAX's XLA warp)."""
+    return sorted({d.lane for d in marker_diffs("", k, unpack(rec, a, k), unpack(rec, b, k))})
+
+
+def compare_scenes(where: str, rec: dict, frames, outs, fits_of=None,
+                   decode: str = "pallas") -> Report:
     """Detections of scenes (one ``detect_batch`` output of one frame
     each, ``outs``) against the records of the scene set (``subset(load(
-    "scenes"), name)``): per scene the same marker lanes, and on each its
-    id, code, distance and rounded corners.  ``fits_of(k)`` -> the port's
-    fit quads of scene ``k`` (1, K, 4, 2), asked only when a lane
-    differs."""
+    "scenes"), name)``; held to its ``decode``, ``held``): per scene the
+    same marker lanes, and on each its id, code, distance and rounded
+    corners.  ``fits_of(k)`` -> the port's fit quads of scene ``k`` (1, K,
+    4, 2), asked only when a lane differs."""
     check_hashes(where, rec["hashes"], frames)
+    xla, rec = rec, held(rec, decode)
     rep = Report(where)
     k_lanes = int(rec["lanes"])
     for k, out in enumerate(outs):
         rep.compared += 1
+        rep.warp_split += [(k, lane) for lane in scene_lanes_apart(xla, k, "", decode + "/")]
         want = unpack(rec, "", k)
         got = markers_of(out, 0)
         diffs = marker_diffs(where, k, want, got)
@@ -549,12 +692,15 @@ def marker_diffs(where: str, item: int, want: dict, got: dict) -> list:
 
 def compare_views(where: str, rec: dict, frames, views) -> Report:
     """The pose example's views (``simulate(...)["views"]``) against the
-    record: the same ids in order, and the marker's translation (mm) and
-    normal within ``VIEW_TRANS_TOL`` and ``VIEW_ROT_TOL``, or missed in both."""
+    record (held to its Pallas-warp decode, ``held``): the same ids in
+    order, and the marker's translation (mm) and normal within
+    ``VIEW_TRANS_TOL`` and ``VIEW_ROT_TOL``, or missed in both."""
     check_hashes(where, rec["hashes"], frames)
+    xla, rec = rec, held(rec)
     rep = Report(where)
     for v, view in enumerate(views):
         rep.compared += 1
+        rep.warp_split += [(v, lane) for lane in scene_lanes_apart(xla, v)]
         diffs = []
         ids = unpack(rec, "", v)["id"].tolist()
         if view["ids"] != ids:
@@ -578,8 +724,10 @@ def compare_views(where: str, rec: dict, frames, views) -> Report:
 
 
 def view_stats(rec: dict) -> dict:
-    """The recorded views' errors as the pose example reports them: views
-    detected, translation (mm) and normal-axis (degrees) mean, p95, max."""
+    """The recorded views' errors (of the Pallas-warp decode, ``held``) as
+    the pose example reports them: views detected, translation (mm) and
+    normal-axis (degrees) mean, p95, max."""
+    rec = held(rec)
     found = rec["found"].astype(bool)
     out = {"detected": int(found.sum())}
     for key in ("t_err", "r_err"):

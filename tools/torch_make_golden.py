@@ -22,7 +22,26 @@ Parts (all by default):
   ``pose.solve_with_intrinsics``, as ``examples/pose_accuracy_sim.py``
   computes them: markers, the translation and normal of marker 17, and
   their errors against the rendered pose;
-* ``8k``: phase 9's 4320x7680 frame through ``Detector.detect``.
+* ``8k``: phase 9's frames, the 4320x7680 frame and the landscape
+  path's frame 0, through ``Detector.detect``;
+* ``kernels``: the JAX TPU kernels that kernels 1, 4 and 8 of the port
+  reproduce, on the seeded probes of ``torch_golden.kernel_probes``:
+  ``build_packed_pyramid``'s levels 1 and 2 (the chain the frontend
+  kernel's ``emit_level1`` starts), ``warp_patches_dma``'s samples and
+  cell grids at levels 0-3 (the gather warp, interpret mode) and
+  ``warp_pallas.warp_eval``'s samples (interpret mode).
+
+Besides JAX's results (its CPU route, whose warp is the XLA pyramid warp
+``warp_patches_mxu``), every input's record holds under ``pallas/`` the
+decode of JAX's recorded quads by the Pallas warp of the port's route
+(``pallas_decoder``): on the refine route (corner refinement and ds > 1)
+``build_packed_pyramid`` and the gather warp ``warp_patches_dma`` with
+its fused decode, on the tail route ``_warp_setup`` and ``warp_eval``,
+both in interpret mode, then JAX's ``_match_tail``: marker validity, id,
+code, distance, rotation, rotated corners, the decode's stats, and the
+poses (or the pose example's view poses) of those corners.  Phase 9's
+frames, which the spatial step decodes through the tail warp, hold that
+decode under ``tail/`` too.
 
 Each frame is stored as its sha256, never as pixels.  ``--check`` makes
 the parts again and compares them with the stored records instead of
@@ -37,8 +56,8 @@ decodes every valid lane of scene K of a scene set (``suite/...``,
 port's refine-route warp (kernel 4's plain version), on JAX's quads, and
 prints each lane's pyramid level and decoded id under each.
 
-The whole run takes about 20 minutes on a CPU (most of it the 300 1080p
-scenes; the 8K frame about 25 s).
+The whole run takes about 25 minutes on a CPU (most of it the 300 1080p
+scenes; the 8K frame about 40 s).
 """
 
 from __future__ import annotations
@@ -62,9 +81,11 @@ import torch_golden as golden  # noqa: E402
 from aruco3_tpu import (  # noqa: E402
     ARDictionary, CameraIntrinsics, Detector, DetectorConfig, frontend, pose, segment,
 )
-from aruco3_tpu.detector import detect_batch_arrays  # noqa: E402
+from aruco3_tpu import rectify  # noqa: E402
+from aruco3_tpu.detector import _match_tail, _num_levels, detect_batch_arrays  # noqa: E402
+from aruco3_tpu.ops.warp_pallas import warp_eval  # noqa: E402
 
-PARTS = ("paths", "scenes", "orbit", "8k")
+PARTS = ("paths", "scenes", "orbit", "8k", "kernels")
 
 
 def jax_config(cfg) -> DetectorConfig:
@@ -117,6 +138,51 @@ def program(cfg: DetectorConfig, dictionary, h: int, w: int, with_pose: bool):
     return jax.jit(fn)
 
 
+def route_of(cfg: DetectorConfig, h: int, w: int) -> str:
+    """The port's route for (h, w) frames (``detector.tail_route``): "refine"
+    (corner refinement and ds > 1, the JAX TPU route) or "tail"."""
+    params, _, _, ds = geometry(cfg, h, w)
+    return "refine" if params.refine and ds > 1 else "tail"
+
+
+def pallas_decoder(cfg: DetectorConfig, dictionary, h: int, w: int, route: str):
+    """fn(frames (B, h, w) u8, quads, quad_valid, stats) -> ``_match_tail``'s
+    outputs of JAX's quads decoded by the Pallas warp of ``route``, in
+    interpret mode: "refine", the chain pyramid (``build_packed_pyramid``)
+    through the gather warp ``warp_patches_dma`` and its fused decode;
+    "tail", ``_warp_setup`` on the exact pyramid (``build_pyramid``) and
+    ``warp_eval``.  The homographies are computed op by op, as the port
+    computes them; the rest is one jitted program."""
+    s = cfg.homography_sample_size
+    m = dictionary.get_mark_size()
+    levels = _num_levels(h, w)
+    assert m * m <= 128, "the JAX refine route fuses the decode of these marks only"
+
+    def refine(grey, H, hv, quads, qv, stats):
+        canvas, offsets, shapes = rectify.build_packed_pyramid(grey, levels)
+        patches, grids = rectify.warp_patches_dma(canvas, offsets, shapes, H, quads, s,
+                                                  interpret=True, fuse_decode_mark=m)
+        return jax.vmap(lambda q, v, hh, p, st, g: _match_tail(
+            q, v, hh, p, st, dictionary, cfg, grids=g))(quads, qv, hv, patches, stats, grids)
+
+    def tail(grey, H, hv, quads, qv, stats):
+        def one(g, hh, hvv, q, v, st):
+            windows, ux, uy, bad = rectify._warp_setup(rectify.build_pyramid(g, levels), hh, q, s)
+            vals = jnp.where(bad, 0.0, warp_eval(windows, ux, uy, interpret=True))
+            return _match_tail(q, v, hvv, vals.reshape(-1, s, s), st, dictionary, cfg)
+
+        return jax.vmap(one)(grey, H, hv, quads, qv, stats)
+
+    fn = jax.jit(refine if route == "refine" else tail)
+
+    def decode(frames, quads, quad_valid, stats):
+        H, hv = rectify.homography_square_to_quad(jnp.asarray(quads), s)
+        return jax.device_get(fn(jnp.asarray(frames), H, hv, jnp.asarray(quads),
+                                 jnp.asarray(quad_valid), stats))
+
+    return decode
+
+
 def eager_poses(corners, h: int, w: int):
     """``pose.solve_normalized_batch`` of the corners over (w, h), op by op
     (``jax.disable_jit``): one rounding an operation, as the port rounds.
@@ -130,10 +196,12 @@ def eager_poses(corners, h: int, w: int):
 def path_record(path: str, frames) -> dict:
     """The record of one path's frames (keys without the path prefix):
     the bench program's outputs, its poses as ``bench_pose_*`` and the
-    op-by-op poses of its corners as ``pose_*``."""
+    op-by-op poses of its corners as ``pose_*``; under ``pallas/`` the
+    decode of its quads by the Pallas warp of the port's route."""
     dict_name, cfg = golden.path_specs()[path]
     n, h, w = frames.shape
-    fn = program(jax_config(cfg), ARDictionary.new_from_named_dict(dict_name), h, w, True)
+    jcfg, dictionary = jax_config(cfg), ARDictionary.new_from_named_dict(dict_name)
+    fn = program(jcfg, dictionary, h, w, True)
     res = jax.device_get(fn(jnp.asarray(frames)))
     rec = golden.batch_record(res, eager_poses(res["marker_corners"], h, w))
     for k, v in zip(golden.POSE_KEYS, res["poses"]):
@@ -141,34 +209,55 @@ def path_record(path: str, frames) -> dict:
     for k in ("fit_quads", "fit_centroids", "fit_sizes"):
         rec[k] = np.asarray(res[k])
     rec["hashes"] = np.array([golden.frame_hash(f) for f in frames])
+    dec = pallas_decoder(jcfg, dictionary, h, w, route_of(jcfg, h, w))(
+        frames, res["quads"], res["quad_valid"], res["stats"])
+    dec = golden.batch_record(dec, eager_poses(dec["marker_corners"], h, w))
+    rec.update({f"pallas/{k}": v for k, v in dec.items() if k not in ("quads", "quad_valid")})
     return rec
 
 
 class SceneRecorder:
     """Records frames of one shape through ``Detector.detect``'s program
-    (one frame a call; the detector's params for ``cfg``)."""
+    (one frame a call; the detector's params for ``cfg``), and the decode
+    of its quads by the Pallas warp of the port's route (``pallas/``; with
+    ``tail_too`` also by the tail warp, ``tail/``)."""
 
-    def __init__(self, dict_name: str, cfg: DetectorConfig | None = None):
+    def __init__(self, dict_name: str, cfg: DetectorConfig | None = None, tail_too=False):
         self.cfg = cfg or DetectorConfig()
         self.dictionary = ARDictionary.new_from_named_dict(dict_name)
         self.fns = {}
+        self.decoders = {}
+        self.routes = ("pallas", "tail") if tail_too else ("pallas",)
         self.markers, self.fits, self.hashes = [], [], []
+        self.decoded = {prefix: [] for prefix in self.routes}
 
-    def add(self, img) -> dict:
+    def add(self, img) -> tuple[dict, dict]:
+        """(the program's outputs, prefix -> the Pallas-warp decode) of one frame."""
         h, w = img.shape
         if (h, w) not in self.fns:
             self.fns[h, w] = program(self.cfg, self.dictionary, h, w, False)
+            for prefix in self.routes:
+                route = route_of(self.cfg, h, w) if prefix == "pallas" else "tail"
+                self.decoders[prefix, h, w] = pallas_decoder(self.cfg, self.dictionary, h, w,
+                                                             route)
         res = jax.device_get(self.fns[h, w](jnp.asarray(img)[None]))
         self.markers.append(golden.markers_of(res, 0))
         self.fits.append(golden.fit_lanes(res["fit_quads"][0], res["fit_centroids"][0],
                                           res["fit_sizes"][0]))
         self.hashes.append(golden.frame_hash(img))
         self.lanes = res["marker_valid"].shape[1]
-        return res
+        decs = {}
+        for prefix in self.routes:
+            decs[prefix] = self.decoders[prefix, h, w](img[None], res["quads"], res["quad_valid"],
+                                                       res["stats"])
+            self.decoded[prefix].append(golden.markers_of(decs[prefix], 0))
+        return res, decs
 
     def record(self) -> dict:
         rec = golden.pack(self.markers)
         rec.update({f"fit/{k}": v for k, v in golden.pack(self.fits).items()})
+        for prefix, items in self.decoded.items():
+            rec.update({f"{prefix}/{k}": v for k, v in golden.pack(items).items()})
         rec["hashes"] = np.array(self.hashes)
         rec["lanes"] = np.array(self.lanes)
         return rec
@@ -181,7 +270,7 @@ def scene_record(name: str, n: int | None = None, verify: bool = False) -> dict:
     dict_name = golden.SCENE_SETS[name][0]
     rec = SceneRecorder(dict_name)
     for k, (_, img, _) in enumerate(golden.scene_images(name, n)):
-        res = rec.add(img)
+        res, _ = rec.add(img)
         if verify and k == 0:
             det = Detector(rec.cfg, rec.dictionary).detect(img)
             got = golden.markers_of(res, 0)
@@ -195,42 +284,84 @@ def scene_record(name: str, n: int | None = None, verify: bool = False) -> dict:
 
 
 def orbit_record() -> dict:
-    """The pose example's views through the JAX package."""
+    """The pose example's views through the JAX package: under ``pallas/``
+    the same from the Pallas-warp decode."""
     sim = golden.pose_example()
     intr = sim.camera()
     jintr = CameraIntrinsics.new(intr.image_width, intr.image_height, intr.focal_x, intr.focal_y)
     rec = SceneRecorder("ARUCO_DEFAULT")
-    found, trans, normal, t_err, r_err = [], [], [], [], []
-    for img, rot, t_true in golden.orbit_images():
-        m = rec.add(img)
-        mk = golden.markers_of(m, 0)
+    views = {"": [], "pallas/": []}
+
+    def view(mk, rot, t_true):
+        """(found, translation, normal, t_err, r_err) of the marker in ``mk``."""
         hit = np.nonzero(mk["id"] == sim.MARKER_ID)[0]
-        found.append(bool(len(hit)))
         if not len(hit):
-            for a in (trans, normal):
-                a.append(np.full(3, np.nan, np.float32))
-            t_err.append(np.nan)
-            r_err.append(np.nan)
-            continue
+            return False, np.full(3, np.nan, np.float32), np.full(3, np.nan, np.float32), \
+                np.nan, np.nan
         corners = [tuple(int(v) for v in c) for c in mk["corners"][hit[0]]]
         best, _alt = pose.solve_with_intrinsics(corners, sim.MARKER_MM, jintr)
         t_est = np.asarray(best.translation, np.float32)
         z_est = np.asarray(best.rotation, np.float32)[:, 2]
-        trans.append(t_est)
-        normal.append(z_est)
-        t_err.append(float(np.linalg.norm(t_est.astype(np.float64) - t_true)))
-        r_err.append(float(np.degrees(np.arccos(np.clip(np.dot(rot[:, 2], z_est.astype(np.float64)),
-                                                        -1, 1)))))
+        return (True, t_est, z_est, float(np.linalg.norm(t_est.astype(np.float64) - t_true)),
+                float(np.degrees(np.arccos(np.clip(np.dot(rot[:, 2], z_est.astype(np.float64)),
+                                                   -1, 1)))))
+
+    for img, rot, t_true in golden.orbit_images():
+        m, decs = rec.add(img)
+        views[""].append(view(golden.markers_of(m, 0), rot, t_true))
+        views["pallas/"].append(view(golden.markers_of(decs["pallas"], 0), rot, t_true))
     out = rec.record()
-    out.update(found=np.array(found), translation=np.stack(trans), normal=np.stack(normal),
-               t_err=np.array(t_err), r_err=np.array(r_err))
+    for prefix, rows in views.items():
+        found, trans, normal, t_err, r_err = zip(*rows)
+        out.update({prefix + "found": np.array(found), prefix + "translation": np.stack(trans),
+                    prefix + "normal": np.stack(normal), prefix + "t_err": np.array(t_err),
+                    prefix + "r_err": np.array(r_err)})
     return out
 
 
 def record_8k() -> dict:
-    rec = SceneRecorder(golden.DICT_NAME)
-    rec.add(golden.frame_8k(ARDictionary.new_from_named_dict(golden.DICT_NAME)))
-    return rec.record()
+    """Phase 9's frames, the 8K frame and the landscape path's frame 0,
+    each also decoded by the tail warp (the spatial step's)."""
+    d = ARDictionary.new_from_named_dict(golden.DICT_NAME)
+    out = {}
+    for label, frame in (("8k", golden.frame_8k(d)),
+                         ("1080p", golden.path_frames(("landscape",))["landscape"][0][0])):
+        rec = SceneRecorder(golden.DICT_NAME, tail_too=True)
+        rec.add(frame)
+        out.update({f"{label}/{k}": v for k, v in rec.record().items()})
+    return out
+
+
+def kernels_record() -> dict:
+    """The JAX TPU kernels of the port's kernels 1, 4 and 8 on the probes
+    of ``torch_golden.kernel_probes``, in interpret mode."""
+    pr = golden.kernel_probes()
+    grey, quads = jnp.asarray(pr["grey"]), jnp.asarray(pr["quads"])
+    h, w = pr["grey"].shape[1:]
+    s, m = golden.PROBE_S, golden.PROBE_MARK
+    levels = _num_levels(h, w)
+    H, _ = rectify.homography_square_to_quad(quads, s)
+
+    def chain_and_gather(g, hh, q):
+        canvas, offsets, shapes = rectify.build_packed_pyramid(g, levels)
+        planes = [canvas[:, offsets[lv] : offsets[lv] + shapes[lv][0], : shapes[lv][1]]
+                  for lv in (1, 2)]
+        samples, grids = rectify.warp_patches_dma(canvas, offsets, shapes, hh, q, s,
+                                                  interpret=True, fuse_decode_mark=m)
+        return planes, samples, grids
+
+    (l1, l2), samples, grids = jax.jit(chain_and_gather)(grey, H, quads)
+    evals = jax.jit(lambda a, x, y: warp_eval(a, x, y, interpret=True))(
+        jnp.asarray(pr["windows"]), jnp.asarray(pr["ux"]), jnp.asarray(pr["uy"]))
+    return {
+        "hashes": np.array([golden.frame_hash(pr[k]) for k in golden.PROBE_KEYS]),
+        "H": np.asarray(H),
+        # bfloat16 levels as their float32 values (exact).
+        "level1": np.asarray(l1.astype(jnp.float32)), "level2": np.asarray(l2.astype(jnp.float32)),
+        "warp_samples": np.asarray(samples).reshape(samples.shape[0], samples.shape[1], -1),
+        "warp_grids": np.asarray(grids)[..., : m * m] > 0.5,
+        "warp_eval": np.asarray(evals),
+    }
 
 
 def make(part: str) -> dict:
@@ -256,7 +387,9 @@ def make(part: str) -> dict:
     if part == "orbit":
         return {f"orbit/{k}": v for k, v in orbit_record().items()}
     if part == "8k":
-        return {f"8k/{k}": v for k, v in record_8k().items()}
+        return record_8k()
+    if part == "kernels":
+        return kernels_record()
     raise ValueError(part)
 
 
@@ -304,7 +437,8 @@ def warps(name: str, k: int) -> None:
     tg = torch.from_numpy(img)[None]
     pshapes = prect.pyramid_level_shapes(h, w, prect.num_levels(h, w))
     lvl, tlx, tly = prect.warp_windows(tq, pshapes)
-    level1 = pfront.threshold_open_pool(tg, cfg.threshold_window, params.open_radius, ds)[2]
+    level1 = pfront.threshold_open_pool(tg, cfg.threshold_window, params.open_radius, ds,
+                                        chain=True)[2]
     grids = warp_decode.plain(tg, prect.upper_levels(level1, pshapes),
                               torch.from_numpy(np.array(H))[None], lvl, tlx, tly,
                               torch.ones_like(lvl, dtype=torch.bool), s, m)[2]

@@ -19,11 +19,13 @@ Usage:
 ``--golden`` (the suite at n <= 400, the scenes the JAX records hold)
 also holds every scene's detections against the JAX package's
 (``tests/torch_golden/scenes.npz``, made on the CPU by
-``tools/torch_make_golden.py``; ``tools/torch_golden.py`` compares) and
-prints per dictionary, next to the oracle: the truth markers both JAX and
-the port miss, those only JAX finds, those only the port finds, those the
-oracle finds and JAX misses, the scenes whose markers differ (corners
-apart) and the comparator's counts.  Exits 1 if a scene differs.
+``tools/torch_make_golden.py``; ``tools/torch_golden.py`` compares: JAX's
+quads decoded by the Pallas warp of the port's route) and prints per
+dictionary, next to the oracle: the truth markers both JAX and the port
+miss, those only JAX finds, those only the port finds, those the oracle
+finds and JAX misses, the scenes whose markers differ (corners apart), the
+(scene, lane) pairs where JAX's XLA warp decodes otherwise than its
+Pallas warp, and the comparator's counts.  Exits 1 if a scene differs.
 
 The first line is the card as ``nvidia-smi`` names it, with its power limit.
 """
@@ -52,9 +54,10 @@ def against_jax(name, scenes, outs, det) -> dict:
     images = [img for _, img, _, _ in scenes]
     rep = golden.compare_scenes(f"suite/{name}", rec, images, outs,
                                 lambda k: golden.port_fits(det, images[k][None]))
+    route = golden.held(rec)  # the decode of the Pallas warp of the port's route
     lists = {"both_miss": [], "jax_only": [], "port_only": [], "oracle_not_jax": []}
     for k, (_, _, truths, orc) in enumerate(scenes):
-        jm, pm = (golden.unpack(rec, "", k), golden.markers_of(outs[k], 0))
+        jm, pm = (golden.unpack(route, "", k), golden.markers_of(outs[k], 0))
         jax_m, port_m = ([Marker(int(i), 0, [tuple(c) for c in cs.tolist()], 0)
                           for i, cs in zip(m["id"], m["corners"])] for m in (jm, pm))
         for mid, truth in truths:
@@ -67,7 +70,8 @@ def against_jax(name, scenes, outs, det) -> dict:
     return {"jax": rep.counts(), **lists,
             "scenes_differ": sorted({d.item for d in rep.differences}),
             "corners_differ": sorted({d.item for d in rep.differences if d.field == "corners"}),
-            "ties": rep.ties, "differences": [str(d) for d in rep.differences[:20]]}
+            "ties": rep.ties, "xla_warp_apart": rep.warp_split,
+            "differences": [str(d) for d in rep.differences[:20]]}
 
 
 def one(name, n, size, seed=1234, jax=False):
