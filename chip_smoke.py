@@ -82,7 +82,8 @@ Phases, each printing lines of numbers:
    against ``grid_sample`` and the tail route's warp + decode against
    kernel 4's.
 
-Phases 6-11 drive the other entry points, each once:
+Phases 6-11 drive the other entry points, each once; phase 12 the
+configurations users run:
 
 6. parity: ``parity.score`` of the port's detector on the card against
    the reference oracle on 20 seeded 1080p ``ARUCO_MIP_36H12`` scenes
@@ -130,7 +131,51 @@ Phases 6-11 drive the other entry points, each once:
     (``tests/torch_golden/orbit.npz``: ids, translation and normal), the
     JAX views' statistics printed beside the card's;
     ``examples/torch_detect_image.py``'s ``detect_image`` on one
-    synthesized 800x600 scene, which must find its marker.
+    synthesized 800x600 scene, which must find its marker;
+12. configs: the configurations users run, each held lane by lane against
+    the JAX package's results on the same frames
+    (``tests/torch_golden/configs.npz``; ``golden.config_cases`` and
+    ``golden.config_frames`` make them, ``tools/torch_golden.py``'s
+    docstring says where each comes from):
+
+    - ``config1``: BASELINE config 1, one 640x480 ``ARUCO_DEFAULT`` frame
+      (``benches/bench_configs.py:126-148``), ``DetectorConfig()``, batch 1;
+    - ``config2``: BASELINE config 2's 64 VGA frames of 1-4 markers
+      (``:151-188``), batch 64;
+    - ``config2_noise``: its 64 frames of uniform noise, batch 64;
+    - ``config4``: BASELINE config 4 (``:230-278``), the ``4k-dense-grid``
+      preset (``aruco3_tpu/models/presets.py:47-57``: 96 lanes, its gates)
+      on ``_grid_frame`` at cell 330 (a 10x7 ``APRILTAG_36H11`` grid on
+      2160x3840, ``:191-217``), the one recorded frame stacked to batch 32
+      as config 4 stacks it; also through ``Detector.detect_batch``
+      (config 4 times detect only);
+    - ``preset/reference-default`` (``aruco3_tpu/models/presets.py:32-38``)
+      on config 1's frame, ``preset/low-latency-tracker`` (``:59-65``, 8
+      lanes) on a 480x640 board of 12 ``APRILTAG_36H11`` tags,
+      ``preset/permissive-decode`` (``:67-73``) on 8 noise frames and a
+      marker with a corrupted code (``1080p-mip36h12``, ``:40-45``, is the
+      landscape path);
+    - ``dict/<NAME>`` for each of the 15 dictionaries (marks 6, 7, 8 and
+      10), ``DetectorConfig()`` (the refine route), and
+      ``dict/<NAME>:noref`` with ``refine_corners=False`` (the tail
+      route): a 480x640 board of 12 tags and its mirror, batch 2;
+    - ``rgb``: config 2's first 4 frames as tinted (4, 480, 640, 3) colour;
+    - ``clutter``, ``clutter:noref``: 4 VGA frames of noise in 4x4 blocks,
+      about a thousand components more than the 32 lanes (config 2's
+      noise frames leave none after the opening), on both routes.
+
+    Each case's frames go through its detector's detect + pose graph at
+    the case's batch; one replay with every launch count set to 0 just
+    before and read just after must launch the kernels of the case's route
+    (fused: 1, 2 fit mode, 3, 4; tail: 1, 2 labels mode, 7, 8) and no
+    other, and call no plain version; the outputs are held to the record
+    as in phase 4 (``golden.compare_batch``).  One line a case: route,
+    lanes, markers found, lanes equal, ties, lanes where JAX's XLA warp
+    decodes otherwise.  For ``config1``, ``config2``, ``config2_noise``
+    and ``config4``: event ms per batch and frames/s of the graph beside
+    the eager function, in turns (eager, graph, graph, eager) after the
+    capture; config 4's are ``Detector.detect_batch``'s graph (detect
+    only) against ``detect_batch_arrays`` eagerly.
 
 Then a ``[jax records]`` line a phase (frames, scenes or views compared and
 equal, ties accepted, differences, lanes where JAX's XLA warp and the
@@ -532,15 +577,17 @@ def kernel_records() -> None:
     chain's level 2 (``rectify.upper_levels``) against
     ``build_packed_pyramid``'s; kernel 4's samples and cell grids at
     levels 0-3 against the gather warp ``warp_patches_dma`` (its fused
-    decode), through the recorded homographies; kernel 8 against
+    decode), through the recorded homographies: grids at marks 6, 7, 8 and
+    10, samples and grids at S = 49 and 64; kernel 8 against
     ``warp_pallas.warp_eval`` (``golden.port_kernel_outputs`` on the
     card).  Each bit for bit; any difference fails."""
     rec = golden.load("kernels")
     got = golden.port_kernel_outputs("cuda")
     log("kernel probes", frame="x".join(map(str, golden.PROBE_HW)),
         lanes=got["levels"].size, levels=sorted(set(got["levels"].ravel().tolist())),
-        windows=golden.PROBE_WINDOWS)
-    for key in ("level1", "level2", "warp_samples", "warp_grids", "warp_eval"):
+        windows=golden.PROBE_WINDOWS, marks=list(golden.PROBE_MARKS),
+        patch_sides=[golden.PROBE_S, golden.PROBE_S_WIDE])
+    for key in sorted(k for k in rec if k not in ("hashes", "H", "H_s64")):
         g, want = got[key], rec[key]
         require(g.shape == want.shape, f"{key}: shape {g.shape} against the record's {want.shape}")
         diff = np.abs(g.astype(np.float64) - want.astype(np.float64))
@@ -623,13 +670,13 @@ def pose_step(det, h, w):
 
 
 def pose_graph(det, shape):
-    """The CUDA graph of ``pose_step`` for (B, H, W) uint8 batches of
+    """The CUDA graph of ``pose_step`` for (B, H, W[, C]) uint8 batches of
     ``shape``, in the detector's graph cache: the counterpart of bench.py's
     ``jax.jit(batch_fn)``."""
     import torch
 
     shape = tuple(shape)
-    return det.graphs.get(("detect_and_pose",) + shape, lambda: pose_step(det, *shape[1:]),
+    return det.graphs.get(("detect_and_pose",) + shape, lambda: pose_step(det, *shape[1:3]),
                           shape, torch.uint8, det.device)
 
 
@@ -1576,6 +1623,98 @@ def examples_phase(cpu, cpu_s, orbit_records, totals) -> None:
     require(mid in ids, f"detect image: marker {mid} not found ({ids})")
 
 
+CONFIG_TIMED = ("config1", "config2", "config2_noise", "config4")  # phase 12's timed cases
+
+
+def case_kernels(det, shape):
+    """(route, kernels) of a (B, H, W[, C]) batch on the detector's route:
+    "tail" (kernel 1, kernel 2's labels mode, kernel 7 or kernels 5 and 6,
+    kernel 8), "fused" (kernels 1, 2 in fit mode, 3 and 4) or "labels"
+    (kernels 1, 2 in labels mode, 7 or 5 and 6, 3 and 4)."""
+    from aruco3_tpu_torch import detector
+    from aruco3_tpu_torch.ops.fit import MAX_LANES
+
+    h, w = shape[1:3]
+    params, _, _, ds = det.geometry(h, w)
+    k1, k2 = params.max_candidates, params.max_inner_candidates
+    fits = {"fused_fit"} if max(k1, k2) <= MAX_LANES else {"rank_roots", "fit_lanes"}
+    if detector.tail_route(params, ds):
+        return "tail", {"frontend", "coarse_labels", "warp_eval"} | fits
+    if detector.fit_route(-(-h // ds), -(-w // ds), k1, k2) == "fused":
+        return "fused", {"frontend", "coarse_fit", "refine", "warp_decode"}
+    return "labels", {"frontend", "coarse_labels", "refine", "warp_decode"} | fits
+
+
+def config_timing(name, eager, graphed, frames, card) -> None:
+    """Phase 12's timing of one case: CUDA-event ms per batch of the graph
+    and of the eager function in turns (eager, graph, graph, eager; 5
+    calls a timing after a warm-up), and frames/s."""
+    e1 = cuda_ms(lambda: eager(frames), 5)
+    g1 = cuda_ms(lambda: graphed(frames), 5)
+    g2 = cuda_ms(lambda: graphed(frames), 5)
+    e2 = cuda_ms(lambda: eager(frames), 5)
+    ms, eager_ms = (g1 + g2) / 2, (e1 + e2) / 2
+    batch = frames.shape[0]
+    log("configs timing", case=name, card=repr(card), batch=batch, ms_per_batch=round(ms, 4),
+        frames_per_s=round(batch * 1000.0 / ms, 1), eager_ms_per_batch=round(eager_ms, 4),
+        eager_frames_per_s=round(batch * 1000.0 / eager_ms, 1),
+        graph_ms_runs=[round(g1, 4), round(g2, 4)], eager_ms_runs=[round(e1, 4), round(e2, 4)])
+
+
+def configs_phase(card, totals) -> None:
+    """Phase 12: each case of ``golden.config_cases`` through its
+    detector's detect + pose graph at the case's batch, one counted replay,
+    held to ``configs.npz``; config 4 also through ``Detector.detect_batch``;
+    the timed cases' graphs against their eager functions."""
+    import torch
+
+    from aruco3_tpu_torch import ARDictionary, Detector
+    from aruco3_tpu_torch.detector import detect_batch_arrays
+
+    records = golden.load("configs")
+    for name, case in golden.config_cases().items():
+        t0 = time.perf_counter()
+        frames = golden.config_frames(name)
+        rec = golden.subset(records, name)
+        golden.check_hashes(name, rec["hashes"], frames)
+        recorded = len(frames)
+        if case.batch != recorded:
+            rec = golden.stacked(rec, case.batch)
+            frames = np.broadcast_to(frames, (case.batch,) + frames.shape[1:])
+        det = Detector(case.config, ARDictionary.new_from_named_dict(case.dictionary),
+                       device="cuda")
+        batch = torch.from_numpy(np.ascontiguousarray(frames)).cuda()
+        route, kernels = case_kernels(det, batch.shape)
+        g = pose_graph(det, batch.shape)  # warm-up and capture
+        out, rot, tr, err = counted(f"configs {name}", lambda: g(batch), kernels)
+
+        def fits():
+            return golden.port_fits(det, frames)
+
+        rep = golden.compare_batch(name, rec, frames, out, (rot, tr, err), fits)
+        jax_report(f"configs {name}", rep, totals)
+        if case.detect_only:
+            det.detect_batch(batch)  # its graph's warm-up and capture, then a replay
+            got = counted(f"configs {name} detect_batch", lambda: det.detect_batch(batch), kernels)
+            jax_report(f"configs {name} detect_batch",
+                       golden.compare_batch(name, rec, frames, got, None, fits), totals)
+        log("configs case", case=name, dictionary=case.dictionary, route=route,
+            mark=det.dictionary.get_mark_size(), frames_recorded=recorded, batch=case.batch,
+            lanes=int(out["quad_valid"].shape[1]), quads=int(out["quad_valid"].sum()),
+            markers=int(out["marker_valid"].sum()), lanes_equal=rep.lanes, ties=len(rep.ties),
+            xla_warp_lanes_apart=len(rep.warp_split), seconds=round(time.perf_counter() - t0, 2))
+        if name in CONFIG_TIMED:
+            if case.detect_only:
+                dictionary, config, geometry = det.dictionary, det.config, det.geometry(
+                    *batch.shape[1:3])
+                config_timing(name, lambda f: detect_batch_arrays(f, dictionary, config, *geometry),
+                              det.detect_batch, batch, card)
+            else:
+                config_timing(name, pose_step(det, *batch.shape[1:3]), g, batch, card)
+        del det, g, batch, out, rot, tr, err
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import multiprocessing
     import os
@@ -1702,7 +1841,7 @@ def run(reference, pose_cpu) -> int:
         for name in ("refine", "warp_decode"):
             kernel_timing(name, path, table[name], args_of[path][name], phase3[path][name],
                           at_batch[path][name], launches_of[path][name], card)
-    # Phases 6-11: parity, stream, sharded, spatial, detect_arrays, examples.
+    # Phases 6-12: parity, stream, sharded, spatial, detect_arrays, examples, configs.
     import torch.distributed as dist
 
     phase_s = {}
@@ -1723,7 +1862,8 @@ def run(reference, pose_cpu) -> int:
     timed("detect_arrays", detect_arrays_phase, det, scene, golden.subset(record_8k, "1080p"),
           totals)
     timed("examples", examples_phase, pose_cpu, pose_cpu_s, orbit_records, totals)
-    log("phases 6-11", **phase_s)
+    timed("configs", configs_phase, card, totals)
+    log("phases 6-12", **phase_s)
     for phase, counts in totals.items():
         log("jax records", of=phase, **counts)
 

@@ -88,12 +88,16 @@ def test_plain_versions_match_kernel_records():
     """What phase 3 of ``chip_smoke.py`` holds the kernels to, on the CPU:
     kernel 1's refine-mode level 1 and the chain's level 2, kernel 4's
     samples and cell grids at pyramid levels 0-3 (through the recorded
-    homographies) and kernel 8's samples equal the JAX TPU kernels'
-    outputs on the probes bit for bit."""
+    homographies; grids at marks 6, 7, 8 and 10, samples and grids at S =
+    49 and 64) and kernel 8's samples equal the JAX TPU kernels' outputs on
+    the probes bit for bit."""
     rec = golden.load("kernels")
     got = golden.port_kernel_outputs("cpu")
     assert sorted(set(got["levels"].ravel().tolist())) == [0, 1, 2, 3]
-    for key in ("level1", "level2", "warp_samples", "warp_grids", "warp_eval"):
+    keys = sorted(k for k in rec if k not in ("hashes", "H", "H_s64"))
+    assert {golden.probe_grid_key(m) for m in golden.PROBE_MARKS} <= set(keys)
+    assert {"warp_samples_s64", "warp_grids_s64"} <= set(keys)
+    for key in keys:
         np.testing.assert_array_equal(got[key], rec[key], err_msg=key)
 
 

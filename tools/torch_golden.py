@@ -20,7 +20,45 @@ Inputs (numpy, the port's renderer):
 * ``frame_8k``: phase 9's 4320x7680 frame;
 * ``kernel_probes``: seeded probes of kernels 1, 4 and 8 (a frame, quads
   at pyramid levels 0-3, windows and window coordinates), whose record
-  (``kernels.npz``) holds the JAX TPU kernels' outputs on them.
+  (``kernels.npz``) holds the JAX TPU kernels' outputs on them (kernel
+  4's cell grids at marks 6, 7, 8 and 10, and its samples and grids at
+  S = 64 too);
+* ``config_frames``: the configurations users run, ``config_cases``
+  (``configs.npz``; ``chip_smoke.py``'s phase 12), in this order:
+
+  - ``config1``: BASELINE config 1 (``benches/bench_configs.py:126-148``),
+    one 640x480 ``ARUCO_DEFAULT`` frame, ``random_marker_scene(d, 5,
+    rng=default_rng(0))``, ``DetectorConfig()``: the refine route at ds 4;
+  - ``config2``: BASELINE config 2 (``:151-188``), 64 VGA frames of 1-4
+    markers (``default_rng(1)``), at batch 64;
+  - ``config2_noise``: its noise frames (``noise=True``): 64 VGA frames
+    of uniform noise, which fill every candidate lane, at batch 64;
+  - ``config4``: BASELINE config 4 (``:191-217``, ``:230-278``): the
+    ``4k-dense-grid`` preset (``models/presets.py:47-57``: 96 lanes, its
+    gates) on ``_grid_frame`` at cell 330, a 10x7 ``APRILTAG_36H11`` grid
+    on 2160x3840 (noise ``default_rng(2)``), one frame recorded, stacked
+    to batch 32 on the card, detect only as config 4 times it (also
+    through ``Detector.detect_batch``);
+  - ``preset/reference-default`` (``models/presets.py:32-38``) on config
+    1's frame; ``preset/low-latency-tracker`` (``:59-65``, 8 lanes) on a
+    480x640 board of 12 ``APRILTAG_36H11`` tags, more than its lanes;
+    ``preset/permissive-decode`` (``:67-73``) on ``config2_noise``'s first
+    8 frames and marker 5 with a corrupted code (``tests/
+    test_torch_configs.py:29``'s construction at 480x640).  The fifth
+    preset, ``1080p-mip36h12``, is the landscape path of ``paths``;
+  - ``dict/<NAME>`` for each of the 15 dictionaries (the alias
+    ``ARUCO_DEFAULT`` too), ``DetectorConfig()``, and ``dict/<NAME>:noref``
+    with ``refine_corners=False`` (the tail route): a 480x640 board of 12
+    tags of 104 px (``grid_frame``, noise sigma 2) and its left-right
+    mirror;
+  - ``rgb``: ``config2``'s first 4 frames as (4, 480, 640, 3), each
+    channel tinted by a seeded gain and offset, so that luma is not the
+    grey;
+  - ``clutter`` and ``clutter:noref`` (``DetectorConfig()`` and without
+    refinement, ``ARUCO_DEFAULT``): 4 VGA frames of uniform noise in 4x4
+    blocks.  Config 2's noise frames leave no component after the 5x5
+    opening; these leave about a thousand more than the 32 lanes hold, so
+    the lane selection and kernel 2's round limits run full.
 
 Each record holds JAX's CPU route (its warp is the XLA pyramid warp) and,
 under ``pallas/``, the decode of JAX's quads by the Pallas warp of the
@@ -61,6 +99,7 @@ frame, scene or view, lane and field.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import sys
 from dataclasses import dataclass, field, replace
@@ -85,8 +124,10 @@ LANDSCAPE_HW = (1080, 1920)
 DICT_NAME = "ARUCO_MIP_36H12"
 DENSE_HW = (2160, 3840)
 SMALL_HW = (120, 160)
-# The "single" scene of the twin tests at half size: marker 5 of ARUCO_DEFAULT.
-SMALL_QUAD = np.array([[100, 70], [220, 75], [215, 190], [95, 185]], float) * 0.5
+# The "single" scene of the twin tests (marker 5 of ARUCO_DEFAULT on 320x240),
+# and at half size.
+SINGLE_QUAD = np.array([[100, 70], [220, 75], [215, 190], [95, 185]], float)
+SMALL_QUAD = SINGLE_QUAD * 0.5
 MARKER_MM = 40.0
 PATHS = ("landscape", "portrait", "dense", "noref", "small")
 # Scene sets: name -> (dictionary, scenes, (width, height), seed).
@@ -106,6 +147,24 @@ PROBE_LANES, PROBE_WINDOWS, PROBE_SEED = 4, 8, 12
 PROBE_KEYS = ("grey", "quads", "windows", "ux", "uy")
 # Quad sides (px) that land on pyramid levels 0-3 of a PROBE_HW frame.
 PROBE_SIDES = ((12, 36), (62, 76), (122, 150), (250, 300))
+# Kernel 4's marks in the probes (the 15 dictionaries' 6, 7, 8 and 10), and
+# the patch side of its second probe.
+PROBE_MARKS, PROBE_S_WIDE = (6, 7, 8, 10), 64
+# The configurations of ``configs.npz``: VGA frames; config 4's grid
+# (cell, columns x rows, noise seed) on 4K and its batch; the boards of the
+# dict/ and tracker cases (4x3 tags of 104 px, above ``DetectorConfig()``'s
+# edge gate of 0.2 * 480 = 96 px), their noise seed (plus the dictionary's
+# index); seeds of the tracker's board, the corrupted frame and the tints.
+CONFIG_HW, CONFIG2_FRAMES = (480, 640), 64
+CONFIG4_CELL, CONFIG4_GRID, CONFIG4_SEED, CONFIG4_BATCH = 330, (10, 7), 2, 32
+BOARD_CELL, BOARD_GRID, BOARD_SEED = 130, (4, 3), 20
+TRACKER_SEED, CORRUPT_SEED, RGB_SEED, CLUTTER_SEED = 13, 14, 15, 16
+PERMISSIVE_NOISE_FRAMES, RGB_FRAMES, CLUTTER_FRAMES, CLUTTER_BLOCK = 8, 4, 4, 4
+CONFIG_DICTS = ("APRILTAG_16H5", "APRILTAG_25H7", "APRILTAG_25H9", "APRILTAG_36H10",
+                "APRILTAG_36H11", "APRILTAG_36H9", "ARTAG", "ARTOOLKITPLUS", "ARTOOLKITPLUSBCH",
+                "ARUCO", "ARUCO_DEFAULT", "ARUCO_MIP_16H3", "ARUCO_MIP_25H7", "ARUCO_MIP_36H12",
+                "CHILITAGS")
+NOREF = ":noref"  # suffix of a dict/ case on the tail route
 # Record prefixes of the Pallas warps' decodes: the route's own, the tail warp's.
 DECODES = ("pallas", "tail")
 # The integer fields of a batch's outputs, compared on valid lanes.
@@ -209,13 +268,20 @@ def kernel_probes() -> dict:
             "ux": coords(), "uy": coords()}
 
 
+def probe_grid_key(m: int) -> str:
+    """The key of kernel 4's cell grids at mark ``m`` in ``kernels.npz``."""
+    return "warp_grids" if m == PROBE_MARK else f"warp_grids_m{m}"
+
+
 def port_kernel_outputs(device) -> dict:
     """The port's kernels 1, 4 and 8 on ``kernel_probes`` (their plain
     versions on the CPU), as ``kernels.npz`` holds the JAX TPU kernels'
     outputs: kernel 1's refine-mode level 1 and the chain's level 2
-    (``rectify.upper_levels``), kernel 4's samples and cell grids through
-    the recorded homographies, kernel 8's samples; numpy, bfloat16 levels
-    as float32.  Also "levels": the pyramid level of each probe lane."""
+    (``rectify.upper_levels``), kernel 4's samples and its cell grids at
+    each of ``PROBE_MARKS`` through the recorded homographies, and its
+    samples and grids (mark 7) at S = ``PROBE_S_WIDE`` through that side's;
+    kernel 8's samples; numpy, bfloat16 levels as float32.  Also "levels":
+    the pyramid level of each probe lane."""
     import torch
 
     from aruco3_tpu_torch import rectify
@@ -229,12 +295,21 @@ def port_kernel_outputs(device) -> dict:
     uppers = rectify.upper_levels(frontend.threshold_open_pool(t["grey"], 7, 2, 2, chain=True)[2],
                                   shapes)
     lvl, tlx, tly = rectify.warp_windows(t["quads"], shapes)
-    samples, _, grids = warp_decode.warp_decode(
-        t["grey"], uppers, torch.from_numpy(rec["H"]).to(device), lvl, tlx, tly,
-        torch.ones_like(lvl, dtype=torch.bool), PROBE_S, PROBE_MARK)
+
+    def warp(key_h, s, m):
+        return warp_decode.warp_decode(
+            t["grey"], uppers, torch.from_numpy(rec[key_h]).to(device), lvl, tlx, tly,
+            torch.ones_like(lvl, dtype=torch.bool), s, m)
+
+    samples = warp("H", PROBE_S, PROBE_MARK)[0]
+    wide, _, wide_grids = warp("H_s64", PROBE_S_WIDE, PROBE_MARK)
     out = {"level1": uppers[0].float(), "level2": uppers[1].float(),
-           "warp_samples": samples.reshape(rec["warp_samples"].shape), "warp_grids": grids,
+           "warp_samples": samples.reshape(rec["warp_samples"].shape),
+           "warp_samples_s64": wide.reshape(rec["warp_samples_s64"].shape),
+           "warp_grids_s64": wide_grids,
            "warp_eval": warp_eval.warp_eval(t["windows"], t["ux"], t["uy"]), "levels": lvl}
+    for m in PROBE_MARKS:
+        out[probe_grid_key(m)] = warp("H", PROBE_S, m)[2]
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -319,6 +394,159 @@ def orbit_images(n: int = ORBIT_VIEWS):
     sim = pose_example()
     d = sim.ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
     return list(sim.orbit_views(n, d, sim.camera()))
+
+
+@dataclass(frozen=True)
+class ConfigCase:
+    """A case of ``configs.npz``: dictionary name, the port's
+    ``DetectorConfig``, the batch it is driven at on the card (its recorded
+    frames, or its one recorded frame stacked) and whether it runs detect
+    only (config 4)."""
+
+    dictionary: str
+    config: object
+    batch: int
+    detect_only: bool = False
+
+
+def config_cases() -> dict:
+    """name -> ``ConfigCase``, in the record's order (the module docstring
+    says where each comes from)."""
+    from aruco3_tpu_torch import DetectorConfig
+    from aruco3_tpu_torch.models import presets
+
+    default = DetectorConfig()
+    cases = {
+        "config1": ConfigCase("ARUCO_DEFAULT", default, 1),
+        "config2": ConfigCase("ARUCO_DEFAULT", default, CONFIG2_FRAMES),
+        "config2_noise": ConfigCase("ARUCO_DEFAULT", default, CONFIG2_FRAMES),
+    }
+    dense = presets.get_preset("4k-dense-grid")
+    cases["config4"] = ConfigCase(dense.dictionary, dense.config, CONFIG4_BATCH, True)
+    batches = {"reference-default": 1, "low-latency-tracker": 1,
+               "permissive-decode": PERMISSIVE_NOISE_FRAMES + 1}
+    for name, batch in batches.items():
+        pre = presets.get_preset(name)
+        cases[f"preset/{name}"] = ConfigCase(pre.dictionary, pre.config, batch)
+    for name in CONFIG_DICTS:
+        cases[f"dict/{name}"] = ConfigCase(name, default, 2)
+        cases[f"dict/{name}{NOREF}"] = ConfigCase(name, replace(default, refine_corners=False), 2)
+    cases["rgb"] = ConfigCase("ARUCO_DEFAULT", default, RGB_FRAMES)
+    cases["clutter"] = ConfigCase("ARUCO_DEFAULT", default, CLUTTER_FRAMES)
+    cases["clutter" + NOREF] = ConfigCase("ARUCO_DEFAULT", replace(default, refine_corners=False),
+                                          CLUTTER_FRAMES)
+    return cases
+
+
+def _dictionary(name: str):
+    from aruco3_tpu_torch import ARDictionary
+
+    return ARDictionary.new_from_named_dict(name)
+
+
+@functools.lru_cache(maxsize=None)
+def config1_frame() -> np.ndarray:
+    """BASELINE config 1's frame (``benches/bench_configs.py:134-135``)."""
+    from aruco3_tpu_torch import render
+
+    h, w = CONFIG_HW
+    return render.random_marker_scene(_dictionary("ARUCO_DEFAULT"), 5, (w, h),
+                                      rng=np.random.default_rng(0))[0]
+
+
+@functools.lru_cache(maxsize=None)
+def config2_frames(noise: bool, n: int = CONFIG2_FRAMES) -> np.ndarray:
+    """The first ``n`` of BASELINE config 2's 64 frames
+    (``benches/bench_configs.py:157-179``): 1-4 markers each, every one a
+    320x240 ``random_marker_scene`` in its quadrant; with ``noise``,
+    uniform noise."""
+    from aruco3_tpu_torch import render
+
+    d = _dictionary("ARUCO_DEFAULT")
+    h, w = CONFIG_HW
+    rng = np.random.default_rng(1)
+    frames = []
+    for _ in range(n):
+        if noise:
+            frames.append(rng.integers(0, 256, size=(h, w), dtype=np.uint8))
+            continue
+        img = np.full((h, w), 255, dtype=np.uint8)
+        for j in range(int(rng.integers(1, 5))):
+            mid = int(rng.integers(0, len(d)))
+            sub, _, _ = render.random_marker_scene(d, mid, (w // 2, h // 2), rng=rng,
+                                                   min_scale=0.4, max_scale=0.7)
+            y0, x0 = (j // 2) * (h // 2), (j % 2) * (w // 2)
+            img[y0 : y0 + h // 2, x0 : x0 + w // 2] = np.minimum(
+                img[y0 : y0 + h // 2, x0 : x0 + w // 2], sub)
+        frames.append(img)
+    return np.stack(frames)
+
+
+def board(dict_name: str, seed: int) -> np.ndarray:
+    """A 480x640 ``grid_frame`` board of 12 tags of ``dict_name`` (ids 0-11)."""
+    h, w = CONFIG_HW
+    return grid_frame(_dictionary(dict_name), h, w, BOARD_CELL, np.random.default_rng(seed),
+                      *BOARD_GRID)[0]
+
+
+def corrupted_frame() -> np.ndarray:
+    """Marker 5 of ``ARUCO_DEFAULT`` on 480x640 (the twin tests' "single"
+    quad doubled) with a patch of its code cells painted near-white: a
+    decode more than tau from any code (``tests/test_torch_configs.py:29``)."""
+    from aruco3_tpu_torch import render
+
+    h, w = CONFIG_HW
+    img = render.render_marker(_dictionary("ARUCO_DEFAULT"), 5, (w, h), SINGLE_QUAD * 2,
+                               noise_sigma=2.0, rng=np.random.default_rng(CORRUPT_SEED))
+    img[210:300, 280:370] = 235
+    return img
+
+
+def tinted(frames: np.ndarray, seed: int) -> np.ndarray:
+    """(n, H, W) grey -> (n, H, W, 3): each channel of each frame scaled by
+    a gain in [0.6, 1) and lifted by an offset in [0, 40)."""
+    rng = np.random.default_rng(seed)
+    gain = rng.uniform(0.6, 1.0, (len(frames), 1, 1, 3))
+    offset = rng.integers(0, 40, (len(frames), 1, 1, 3))
+    return np.clip(np.round(frames[..., None] * gain + offset), 0, 255).astype(np.uint8)
+
+
+def config_frames(name: str) -> np.ndarray:
+    """The recorded frames of case ``name`` of ``config_cases``: (n, H, W)
+    u8, or (n, H, W, 3) for ``rgb``."""
+    if name in ("config1", "preset/reference-default"):
+        return config1_frame()[None]
+    if name == "config2":
+        return config2_frames(False)
+    if name == "config2_noise":
+        return config2_frames(True)
+    if name == "config4":
+        (h, w), (cols, rows) = DENSE_HW, CONFIG4_GRID
+        return grid_frame(_dictionary("APRILTAG_36H11"), h, w, CONFIG4_CELL,
+                          np.random.default_rng(CONFIG4_SEED), cols, rows)[0][None]
+    if name == "preset/low-latency-tracker":
+        return board("APRILTAG_36H11", TRACKER_SEED)[None]
+    if name == "preset/permissive-decode":
+        return np.concatenate([config2_frames(True, PERMISSIVE_NOISE_FRAMES),
+                               corrupted_frame()[None]])
+    if name.startswith("dict/"):
+        dict_name = name[len("dict/"):].removesuffix(NOREF)
+        img = board(dict_name, BOARD_SEED + CONFIG_DICTS.index(dict_name))
+        return np.stack([img, np.ascontiguousarray(img[:, ::-1])])
+    if name == "rgb":
+        return tinted(config2_frames(False, RGB_FRAMES), RGB_SEED)
+    if name.startswith("clutter"):
+        (h, w), k = CONFIG_HW, CLUTTER_BLOCK
+        small = np.random.default_rng(CLUTTER_SEED).integers(
+            0, 256, (CLUTTER_FRAMES, h // k, w // k), dtype=np.uint8)
+        return np.ascontiguousarray(np.repeat(np.repeat(small, k, axis=1), k, axis=2))
+    raise KeyError(name)
+
+
+def stacked(rec: dict, n: int) -> dict:
+    """A batch record of one frame repeated to ``n`` frames (config 4's
+    frame as its batch stacks it)."""
+    return {k: np.repeat(v, n // len(rec["hashes"]), axis=0) for k, v in rec.items()}
 
 
 def frame_hash(img) -> str:

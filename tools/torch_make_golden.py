@@ -85,7 +85,7 @@ from aruco3_tpu import rectify  # noqa: E402
 from aruco3_tpu.detector import _match_tail, _num_levels, detect_batch_arrays  # noqa: E402
 from aruco3_tpu.ops.warp_pallas import warp_eval  # noqa: E402
 
-PARTS = ("paths", "scenes", "orbit", "8k", "kernels")
+PARTS = ("paths", "scenes", "orbit", "8k", "kernels", "configs")
 
 
 def jax_config(cfg) -> DetectorConfig:
@@ -113,10 +113,12 @@ def geometry(cfg: DetectorConfig, h: int, w: int):
             ds)
 
 
-def program(cfg: DetectorConfig, dictionary, h: int, w: int, with_pose: bool):
-    """One jitted program: ``detect_batch_arrays`` of (B, h, w) frames, the
-    fit lanes of their coarse masks, and (``with_pose``) the poses of the
-    corners over (w, h) as ``bench.py`` solves them."""
+def program(cfg: DetectorConfig, dictionary, h: int, w: int, with_pose: bool,
+            with_grey: bool = False):
+    """One jitted program: ``detect_batch_arrays`` of (B, h, w[, C]) frames,
+    the fit lanes of their coarse masks, (``with_pose``) the poses of the
+    corners over (w, h) as ``bench.py`` solves them, and (``with_grey``) the
+    frames' luma."""
     params, min_edge, min_sep, ds = geometry(cfg, h, w)
 
     def fits(g):
@@ -133,6 +135,8 @@ def program(cfg: DetectorConfig, dictionary, h: int, w: int, with_pose: bool):
         if with_pose:
             norm = out["marker_corners"] / jnp.array([float(w), float(h)], jnp.float32)
             res["poses"] = pose.solve_normalized_batch(norm, golden.MARKER_MM)
+        if with_grey:
+            res["grey"] = out["grey"]
         return res
 
     return jax.jit(fn)
@@ -193,6 +197,25 @@ def eager_poses(corners, h: int, w: int):
         return jax.device_get(pose.solve_normalized_batch(norm, golden.MARKER_MM))
 
 
+def batch_with_decode(fn, decoder, frames) -> tuple[dict, dict]:
+    """(``fn``'s outputs, the record) of a batch of (n, h, w[, C]) frames
+    through ``fn`` (a ``program`` with pose; with grey for colour frames):
+    its outputs, the op-by-op poses of its corners as ``pose_*``, its fit
+    lanes, the frames' hashes, and under ``pallas/`` ``decoder``'s decode
+    of its quads (a ``pallas_decoder``)."""
+    h, w = frames.shape[1:3]
+    res = jax.device_get(fn(jnp.asarray(frames)))
+    rec = golden.batch_record(res, eager_poses(res["marker_corners"], h, w))
+    for k in ("fit_quads", "fit_centroids", "fit_sizes"):
+        rec[k] = np.asarray(res[k])
+    rec["hashes"] = np.array([golden.frame_hash(f) for f in frames])
+    dec = decoder(res["grey"] if frames.ndim == 4 else frames, res["quads"], res["quad_valid"],
+                  res["stats"])
+    dec = golden.batch_record(dec, eager_poses(dec["marker_corners"], h, w))
+    rec.update({f"pallas/{k}": v for k, v in dec.items() if k not in ("quads", "quad_valid")})
+    return res, rec
+
+
 def path_record(path: str, frames) -> dict:
     """The record of one path's frames (keys without the path prefix):
     the bench program's outputs, its poses as ``bench_pose_*`` and the
@@ -201,19 +224,66 @@ def path_record(path: str, frames) -> dict:
     dict_name, cfg = golden.path_specs()[path]
     n, h, w = frames.shape
     jcfg, dictionary = jax_config(cfg), ARDictionary.new_from_named_dict(dict_name)
-    fn = program(jcfg, dictionary, h, w, True)
-    res = jax.device_get(fn(jnp.asarray(frames)))
-    rec = golden.batch_record(res, eager_poses(res["marker_corners"], h, w))
+    res, rec = batch_with_decode(program(jcfg, dictionary, h, w, True),
+                                 pallas_decoder(jcfg, dictionary, h, w, route_of(jcfg, h, w)),
+                                 frames)
     for k, v in zip(golden.POSE_KEYS, res["poses"]):
         rec[f"bench_{k}"] = np.asarray(v)
-    for k in ("fit_quads", "fit_centroids", "fit_sizes"):
-        rec[k] = np.asarray(res[k])
-    rec["hashes"] = np.array([golden.frame_hash(f) for f in frames])
-    dec = pallas_decoder(jcfg, dictionary, h, w, route_of(jcfg, h, w))(
-        frames, res["quads"], res["quad_valid"], res["stats"])
-    dec = golden.batch_record(dec, eager_poses(dec["marker_corners"], h, w))
-    rec.update({f"pallas/{k}": v for k, v in dec.items() if k not in ("quads", "quad_valid")})
     return rec
+
+
+def config_record(name: str, programs: dict) -> dict:
+    """The record of case ``name`` of ``torch_golden.config_cases`` (keys
+    without the case prefix; ``batch_with_decode``, the route's Pallas
+    warp under ``pallas/``).  ``programs`` keeps the last case's program
+    and decoder by (dictionary, config, shape), for the next case of the
+    same key; a new key drops them and JAX's caches, since the compiled
+    programs of every case at once exhaust the process's memory maps."""
+    case = golden.config_cases()[name]
+    frames = golden.config_frames(name)
+    h, w = frames.shape[1:3]
+    cfg = jax_config(case.config)
+    key = (case.dictionary, cfg, frames.shape)
+    if key not in programs:
+        programs.clear()
+        jax.clear_caches()
+        dictionary = ARDictionary.new_from_named_dict(case.dictionary)
+        programs[key] = (program(cfg, dictionary, h, w, True, with_grey=frames.ndim == 4),
+                         pallas_decoder(cfg, dictionary, h, w, route_of(cfg, h, w)))
+    return batch_with_decode(*programs[key], frames)[1]
+
+
+def check_config_inputs() -> None:
+    """Holds ``torch_golden``'s config inputs to the JAX package's own
+    renders of them: config 1's frame (``aruco3_tpu.render``), config 2's
+    first frames (the loop of ``benches/bench_configs.py:157-179``) and
+    config 4's frame (that file's ``_grid_frame``)."""
+    import importlib.util
+
+    from aruco3_tpu import render
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_configs", golden.ROOT / "benches" / "bench_configs.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    d = ARDictionary.new_from_named_dict("ARUCO_DEFAULT")
+    h, w = golden.CONFIG_HW
+    img = render.random_marker_scene(d, 5, (w, h), rng=np.random.default_rng(0))[0]
+    assert np.array_equal(img, golden.config1_frame()), "config 1's frame"
+    rng = np.random.default_rng(1)
+    for f in golden.config2_frames(False)[:4]:
+        img = np.full((h, w), 255, dtype=np.uint8)
+        for j in range(int(rng.integers(1, 5))):
+            mid = int(rng.integers(0, len(d)))
+            sub = render.random_marker_scene(d, mid, (320, 240), rng=rng, min_scale=0.4,
+                                             max_scale=0.7)[0]
+            y0, x0 = (j // 2) * 240, (j % 2) * 320
+            img[y0 : y0 + 240, x0 : x0 + 320] = np.minimum(img[y0 : y0 + 240, x0 : x0 + 320], sub)
+        assert np.array_equal(img, f), "config 2's frames"
+    img = bench._grid_frame(ARDictionary.new_from_named_dict("APRILTAG_36H11"), *golden.DENSE_HW,
+                            cell=golden.CONFIG4_CELL,
+                            rng=np.random.default_rng(golden.CONFIG4_SEED))[0]
+    assert np.array_equal(img, golden.config_frames("config4")[0]), "config 4's frame"
 
 
 class SceneRecorder:
@@ -334,34 +404,44 @@ def record_8k() -> dict:
 
 def kernels_record() -> dict:
     """The JAX TPU kernels of the port's kernels 1, 4 and 8 on the probes
-    of ``torch_golden.kernel_probes``, in interpret mode."""
+    of ``torch_golden.kernel_probes``, in interpret mode: the gather warp's
+    samples at S = 49, its cell grids at each mark of
+    ``torch_golden.PROBE_MARKS``, and its samples and grids (mark 7) at S =
+    ``torch_golden.PROBE_S_WIDE``."""
     pr = golden.kernel_probes()
     grey, quads = jnp.asarray(pr["grey"]), jnp.asarray(pr["quads"])
     h, w = pr["grey"].shape[1:]
-    s, m = golden.PROBE_S, golden.PROBE_MARK
     levels = _num_levels(h, w)
-    H, _ = rectify.homography_square_to_quad(quads, s)
 
-    def chain_and_gather(g, hh, q):
+    def chain_and_gather(g, hh, q, s, m):
         canvas, offsets, shapes = rectify.build_packed_pyramid(g, levels)
         planes = [canvas[:, offsets[lv] : offsets[lv] + shapes[lv][0], : shapes[lv][1]]
                   for lv in (1, 2)]
         samples, grids = rectify.warp_patches_dma(canvas, offsets, shapes, hh, q, s,
                                                   interpret=True, fuse_decode_mark=m)
-        return planes, samples, grids
+        return planes, samples, grids[..., : m * m] > 0.5
 
-    (l1, l2), samples, grids = jax.jit(chain_and_gather)(grey, H, quads)
+    gather = jax.jit(chain_and_gather, static_argnums=(3, 4))
+    out = {"hashes": np.array([golden.frame_hash(pr[k]) for k in golden.PROBE_KEYS])}
+    for s, key in ((golden.PROBE_S, "H"), (golden.PROBE_S_WIDE, "H_s64")):
+        out[key] = np.asarray(rectify.homography_square_to_quad(quads, s)[0])
+    for m in golden.PROBE_MARKS:
+        (l1, l2), samples, grids = gather(grey, jnp.asarray(out["H"]), quads, golden.PROBE_S, m)
+        out[golden.probe_grid_key(m)] = np.asarray(grids)
+    samples64, grids64 = gather(grey, jnp.asarray(out["H_s64"]), quads, golden.PROBE_S_WIDE,
+                                golden.PROBE_MARK)[1:]
     evals = jax.jit(lambda a, x, y: warp_eval(a, x, y, interpret=True))(
         jnp.asarray(pr["windows"]), jnp.asarray(pr["ux"]), jnp.asarray(pr["uy"]))
-    return {
-        "hashes": np.array([golden.frame_hash(pr[k]) for k in golden.PROBE_KEYS]),
-        "H": np.asarray(H),
+    out.update({
         # bfloat16 levels as their float32 values (exact).
         "level1": np.asarray(l1.astype(jnp.float32)), "level2": np.asarray(l2.astype(jnp.float32)),
         "warp_samples": np.asarray(samples).reshape(samples.shape[0], samples.shape[1], -1),
-        "warp_grids": np.asarray(grids)[..., : m * m] > 0.5,
+        "warp_samples_s64": np.asarray(samples64).reshape(samples64.shape[0],
+                                                          samples64.shape[1], -1),
+        "warp_grids_s64": np.asarray(grids64),
         "warp_eval": np.asarray(evals),
-    }
+    })
+    return out
 
 
 def make(part: str) -> dict:
@@ -390,6 +470,20 @@ def make(part: str) -> dict:
         return record_8k()
     if part == "kernels":
         return kernels_record()
+    if part == "configs":
+        check_config_inputs()
+        out, programs = {}, {}
+        for name in golden.config_cases():
+            t0 = time.perf_counter()
+            rec = config_record(name, programs)
+            out.update({f"{name}/{k}": v for k, v in rec.items()})
+            h, w = golden.config_frames(name).shape[1:3]
+            route = route_of(jax_config(golden.config_cases()[name].config), h, w)
+            print(f"  {name}: {len(rec['hashes'])} frames, {route} route, "
+                  f"{int(rec['quad_valid'].sum())} quads, {int(rec['pallas/marker_valid'].sum())} "
+                  f"markers (XLA warp {int(rec['marker_valid'].sum())}), "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return out
     raise ValueError(part)
 
 
