@@ -83,7 +83,7 @@ Phases, each printing lines of numbers:
    kernel 4's.
 
 Phases 6-11 drive the other entry points, each once; phase 12 the
-configurations users run:
+configurations users run, phase 13 the settings they change:
 
 6. parity: ``parity.score`` of the port's detector on the card against
    the reference oracle on 20 seeded 1080p ``ARUCO_MIP_36H12`` scenes
@@ -98,7 +98,12 @@ configurations users run:
    the rings kept full (lanes checked too), frames/s counted from the
    first completed batch, host ms per batch in each hook, beside
    ``detect_batch`` alone at batch 8 (its graph: event and device ms;
-   eager: event ms);
+   eager: event ms); then BASELINE config 5's two-dictionary stream
+   (``golden.stream_frames``: two 1080p streams of 4 frames for each of
+   ``ARUCO_MIP_36H12`` and ``APRILTAG_36H11``, one pipeline a dictionary
+   as ``benches/bench_configs.py:281-345`` runs them), every lane equal
+   to ``detect_batch`` and held to the JAX package's results on the same
+   frames (``tests/torch_golden/stream.npz``, ``golden.compare_batch``);
 8. sharded: ``detect_sharded`` with pose at NCCL world size 1 (the step's
    own graph), equal to the batch's graph of detect + pose (integers and
    poses);
@@ -175,7 +180,24 @@ configurations users run:
     and ``config4``: event ms per batch and frames/s of the graph beside
     the eager function, in turns (eager, graph, graph, eager) after the
     capture; config 4's are ``Detector.detect_batch``'s graph (detect
-    only) against ``detect_batch_arrays`` eagerly.
+    only) against ``detect_batch_arrays`` eagerly;
+13. sweep: the settings users change, each held lane by lane against the
+    JAX package's results on the same frames
+    (``tests/torch_golden/sweep.npz``; ``golden.sweep_cases`` and
+    ``golden.sweep_frames``): every field of ``DetectorConfig`` at values
+    no other record takes (``threshold_window`` 3-21, ``ccl_rounds`` 1-6,
+    ``coarse_factor`` 2-8, ``max_candidates`` 1-256 with kernels 5 and 6
+    above 128 lanes and on a 240x320 grid, ``max_inner_candidates`` 0 and
+    40, ``homography_sample_size`` 25-81 on both routes, the gates, the
+    gather warp), seven odd frame shapes (97x131 to 1000x250) and four-
+    and one-channel frames.  Each case's frames go through its detect +
+    pose graph at their count, one replay counted as in phase 12, held as
+    in phase 4; one ``[sweep case]`` line a case: route, frame, ds, grid,
+    lanes, S, refine window, where kernels 2 and 6 keep their state,
+    launches, differences, ties, XLA-warp lanes apart and graphed ms per
+    batch.
+    Every case runs; a case that fails (a wrapper's refusal included)
+    fails the phase after the rest have run.
 
 Then a ``[jax records]`` line a phase (frames, scenes or views compared and
 equal, ties accepted, differences, lanes where JAX's XLA warp and the
@@ -1156,9 +1178,10 @@ def check_lanes(items, ref, n) -> int:
     return lanes
 
 
-def collect(pipe, items, until, deadline) -> None:
+def collect(pipe, items, until, deadline, whole=False) -> None:
     """Blocking drains of ``pipe.results`` into ``items`` (only the keys
-    the lane check reads) until ``until()`` or the deadline."""
+    the lane check reads, unless ``whole``) until ``until()`` or the
+    deadline."""
     import queue
 
     keep = ("marker_valid", "marker_id", "marker_corners", "done")
@@ -1167,7 +1190,8 @@ def collect(pipe, items, until, deadline) -> None:
             item = pipe.results.get(timeout=0.05)
         except queue.Empty:
             continue
-        item["outputs"] = {k: item["outputs"][k] for k in keep}
+        if not whole:
+            item["outputs"] = {k: item["outputs"][k] for k in keep}
         items.append(item)
 
 
@@ -1246,7 +1270,70 @@ def stream_window(det, frames, ref) -> dict:
     }
 
 
-def stream_phase(det, frames, card) -> None:
+def stream_lanes(det, frames, ref) -> dict:
+    """BASELINE config 5's half for one dictionary: a ``StreamPipeline`` of
+    ``golden.STREAM_PER_DICT`` streams (batch 8, rings of 8) fed stream s's
+    ``golden.STREAM_DEPTH`` frames (``frames`` stream after stream), every
+    lane held to ``ref`` (``detect_batch`` of the frames); returns the
+    lanes' outputs in frame order, as one batch."""
+    import torch
+
+    from aruco3_tpu_torch.runtime.stream import StreamPipeline
+
+    n, depth = len(frames), golden.STREAM_DEPTH
+    pipe = StreamPipeline(det, frames.shape[1:], n_streams=golden.STREAM_PER_DICT,
+                          batch=STREAM_BATCH, ring_capacity=STREAM_RING)
+    require(all(r.native for r in pipe.rings), "stream: the native ring did not build")
+    for k in range(depth):
+        for s in range(golden.STREAM_PER_DICT):
+            pipe.push(s, frames[s * depth + k])
+    items = []
+    pipe.start()
+    collect(pipe, items, lambda: pipe.stats.frames >= n, time.perf_counter() + 120, whole=True)
+    pipe.stop()
+    items += pipe.drain()
+    require(pipe.stats.frames == n, f"stream: {pipe.stats.frames} of {n} frames came out")
+    rows = [None] * n
+    for item in items:
+        require(item["outputs"]["done"].query(), "stream: a result came before its batch ended")
+        for lane, (s, seq) in enumerate(zip(item["stream_ids"], item["seqs"])):
+            if s >= 0:
+                f = int(s) * depth + int(seq)
+                lane_markers(item["outputs"], lane, ref, f)
+                rows[f] = (item["outputs"], lane)
+    require(all(r is not None for r in rows), "stream: a frame's lane is missing")
+    out = {k: torch.stack([o[k][lane] for o, lane in rows])
+           for k in ("quads", "quad_valid", "marker_valid") + golden.MARKER_FIELDS}
+    out["stats"] = {k: torch.stack([o["stats"][k][lane] for o, lane in rows])
+                    for k in rows[0][0]["stats"]}
+    return out
+
+
+def stream_config5(frames_by_dict, records, totals) -> None:
+    """Phase 7's check of BASELINE config 5's stream (four 1080p streams
+    over two dictionaries, one pipeline a dictionary as
+    ``benches/bench_configs.py:281-345`` runs them; ``golden.stream_frames``):
+    each lane equal to ``detect_batch`` of its frame and held to the JAX
+    record of the frames (``tests/torch_golden/stream.npz``)."""
+    import torch
+
+    from aruco3_tpu_torch import ARDictionary, Detector, DetectorConfig
+
+    for name, frames in frames_by_dict.items():
+        rec = golden.subset(records, name)
+        golden.check_hashes(f"stream {name}", rec["hashes"], frames)
+        det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict(name), device="cuda")
+        ref = det.detect_batch(torch.from_numpy(frames).cuda())
+        out = stream_lanes(det, frames, ref)
+        rep = golden.compare_batch(f"stream {name}", rec, frames, out, None,
+                                   lambda: golden.port_fits(det, frames))
+        log("stream config5", dictionary=name, streams=golden.STREAM_PER_DICT,
+            frames=len(frames), lanes_equal_detect_batch=len(frames),
+            markers=int(out["marker_valid"].sum()), lanes_equal_jax=rep.lanes)
+        jax_report(f"stream {name}", rep, totals)
+
+
+def stream_phase(det, frames, card, config5_frames, records, totals) -> None:
     """Phase 7: ``StreamPipeline`` at BASELINE config 5's shape (4 streams
     of 1080x1920, batch 8, rings of 8) on the native ring.  A check run of
     32 frames, every lane against ``detect_batch``; then STREAM_REPEATS
@@ -1254,7 +1341,9 @@ def stream_phase(det, frames, card) -> None:
     (their lanes checked too), beside ``detect_batch`` alone at batch 8
     on frames already on the card: its event time (the graph's copy,
     replay and clones) and its device time, and the eager
-    ``detect_batch_arrays``'s event time (host launch loop included)."""
+    ``detect_batch_arrays``'s event time (host launch loop included).
+    Then BASELINE config 5's two-dictionary stream against ``detect_batch``
+    and the JAX records (``stream_config5``)."""
     import statistics
 
     import torch
@@ -1286,6 +1375,7 @@ def stream_phase(det, frames, card) -> None:
         ms_per_batch_median=round(1e3 * STREAM_BATCH / med, 3),
         detect_batch_event_ms=round(batch_ms, 3), detect_batch_device_ms=round(batch_device_ms, 3),
         detect_batch_eager_event_ms=round(eager_ms, 3))
+    stream_config5(config5_frames, records, totals)
 
 
 def sharded_phase(det, frames) -> None:
@@ -1629,8 +1719,9 @@ CONFIG_TIMED = ("config1", "config2", "config2_noise", "config4")  # phase 12's 
 def case_kernels(det, shape):
     """(route, kernels) of a (B, H, W[, C]) batch on the detector's route:
     "tail" (kernel 1, kernel 2's labels mode, kernel 7 or kernels 5 and 6,
-    kernel 8), "fused" (kernels 1, 2 in fit mode, 3 and 4) or "labels"
-    (kernels 1, 2 in labels mode, 7 or 5 and 6, 3 and 4)."""
+    kernel 8; not 8 with ``warp_impl="gather"``), "fused" (kernels 1, 2 in
+    fit mode, 3 and 4) or "labels" (kernels 1, 2 in labels mode, 7 or 5
+    and 6, 3 and 4)."""
     from aruco3_tpu_torch import detector
     from aruco3_tpu_torch.ops.fit import MAX_LANES
 
@@ -1639,7 +1730,8 @@ def case_kernels(det, shape):
     k1, k2 = params.max_candidates, params.max_inner_candidates
     fits = {"fused_fit"} if max(k1, k2) <= MAX_LANES else {"rank_roots", "fit_lanes"}
     if detector.tail_route(params, ds):
-        return "tail", {"frontend", "coarse_labels", "warp_eval"} | fits
+        warp = set() if det.config.warp_impl == "gather" else {"warp_eval"}
+        return "tail", {"frontend", "coarse_labels"} | warp | fits
     if detector.fit_route(-(-h // ds), -(-w // ds), k1, k2) == "fused":
         return "fused", {"frontend", "coarse_fit", "refine", "warp_decode"}
     return "labels", {"frontend", "coarse_labels", "refine", "warp_decode"} | fits
@@ -1715,6 +1807,87 @@ def configs_phase(card, totals) -> None:
         torch.cuda.empty_cache()
 
 
+def layouts(route, kernels, params, hc, wc) -> dict:
+    """Where kernel 2 (and kernel 6, where it runs) keeps a frame's state
+    on the case's grid, as the library's layouts say: on chip (shared
+    memory) or not, and the device scratch in ints a frame (a block for
+    kernel 6)."""
+    from aruco3_tpu_torch import segment
+    from aruco3_tpu_torch.ops import _build
+
+    p = hc * wc
+    k1, k2 = params.max_candidates, max(params.max_inner_candidates, 0)
+    kr = 0
+    if route == "fused":
+        kr = max(segment.rank_pool_size(k1, p), segment.rank_pool_size(k2, p) if k2 else 0)
+    smem, ints = _build.layout("a3_coarse_layout", hc, wc, kr)
+    out = {"coarse_on_chip": smem > 0, "coarse_scratch_ints": ints}
+    if "fit_lanes" in kernels:
+        smem, ints = _build.layout("a3_lanes_layout", hc, wc)
+        out.update(fit_lanes_on_chip=smem > 0, fit_lanes_scratch_ints=ints)
+    return out
+
+
+def sweep_case(name, case, records, card, totals) -> None:
+    """Phase 13 for one case of ``golden.sweep_cases``: its recorded
+    frames through the detector's detect + pose graph at their count, one
+    replay counted (the route's kernels, no other, no plain version), held
+    to ``sweep.npz`` (``golden.compare_batch``), then the graph's event ms
+    per batch."""
+    import torch
+
+    from aruco3_tpu_torch import ARDictionary, Detector, segment
+
+    t0 = time.perf_counter()
+    frames = golden.sweep_frames(name)
+    rec = golden.subset(records, name)
+    golden.check_hashes(name, rec["hashes"], frames)
+    det = Detector(case.config, ARDictionary.new_from_named_dict(case.dictionary), device="cuda")
+    batch = torch.from_numpy(frames).cuda()
+    route, kernels = case_kernels(det, batch.shape)
+    h, w = frames.shape[1:3]
+    params, _, _, ds = det.geometry(h, w)
+    hc, wc = -(-h // ds), -(-w // ds)
+    g = pose_graph(det, batch.shape)  # warm-up and capture
+    out, rot, tr, err = counted(f"sweep {name}", lambda: g(batch), kernels)
+    launches = {k: c.launches for k, c in counters().items() if c.launches}
+    rep = golden.compare_batch(name, rec, frames, out, (rot, tr, err),
+                               lambda: golden.port_fits(det, frames))
+    ms = cuda_ms(lambda: g(batch), 5)
+    log("sweep case", case=name, card=repr(card), route=route, frames=len(frames),
+        frame="x".join(str(v) for v in frames.shape[1:]), ds=ds, grid=f"{hc}x{wc}",
+        grid_cells=hc * wc, lanes=int(out["quad_valid"].shape[1]),
+        inner_lanes=params.max_inner_candidates, sample_size=det.config.homography_sample_size,
+        threshold_window=det.config.threshold_window, ccl_rounds=params.ccl_rounds,
+        refine_window=segment.refine_window_size(params, ds) if "refine" in launches else None,
+        **layouts(route, kernels, params, hc, wc),
+        **{f"launches_{k}": v for k, v in launches.items()},
+        quads=int(out["quad_valid"].sum()), markers=int(out["marker_valid"].sum()),
+        lanes_equal=rep.lanes, differences=len(rep.differences), ties=len(rep.ties),
+        xla_warp_lanes_apart=len(rep.warp_split), graph_ms_per_batch=round(ms, 4),
+        seconds=round(time.perf_counter() - t0, 2))
+    jax_report(f"sweep {name}", rep, totals)
+
+
+def sweep_phase(card, records, totals) -> None:
+    """Phase 13: every case of ``golden.sweep_cases`` (``sweep_case``)
+    against ``records`` (``sweep.npz``), each in turn whatever the one
+    before it did; fails at the end if any case failed, a wrapper's
+    refusal included."""
+    import torch
+
+    failed = []
+    for name, case in golden.sweep_cases().items():
+        try:
+            sweep_case(name, case, records, card, totals)
+        except (AssertionError, ValueError, RuntimeError) as e:
+            failed.append(name)
+            print(f"[sweep failed] case={name} {type(e).__name__}: {e}", flush=True)
+        torch.cuda.empty_cache()
+    log("sweep", cases=len(golden.sweep_cases()), failed=len(failed))
+    require(not failed, f"sweep: {len(failed)} cases failed: {failed}")
+
+
 def main() -> int:
     import multiprocessing
     import os
@@ -1732,10 +1905,11 @@ def main() -> int:
     # themselves.
     with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as bg:
         reference = bg.submit(parity_reference, max(1, (os.cpu_count() or 3) - 2))
-        return run(reference, bg.submit(pose_sim_cpu))
+        pose_cpu = bg.submit(pose_sim_cpu)
+        return run(reference, pose_cpu, bg.submit(golden.stream_frames))
 
 
-def run(reference, pose_cpu) -> int:
+def run(reference, pose_cpu, stream_frames) -> int:
     import torch
 
     card = smi_line()
@@ -1751,8 +1925,8 @@ def run(reference, pose_cpu) -> int:
     log("build", seconds=round(time.perf_counter() - t0, 3), library=_build.library_path().name)
 
     paths, truths, records = path_inputs()
-    scene_records, orbit_records, record_8k = (golden.load(n) for n in ("scenes", "orbit",
-                                                                          "frame_8k"))
+    scene_records, orbit_records, record_8k, stream_records, sweep_records = (
+        golden.load(n) for n in ("scenes", "orbit", "frame_8k", "stream", "sweep"))
     totals = {}  # phase -> counts of the comparisons with the JAX records
     det, det_dense, det_noref, det_small = (
         paths[p][0] for p in ("landscape", "dense", "noref", "small"))
@@ -1852,7 +2026,8 @@ def run(reference, pose_cpu) -> int:
         phase_s[f"{name}_s"] = round(time.perf_counter() - t0, 1)
 
     timed("parity", parity_phase, card, parity_scenes, reference_s, scene_records, totals)
-    timed("stream", stream_phase, det, paths["landscape"][1], card)
+    timed("stream", stream_phase, det, paths["landscape"][1], card, stream_frames.result(),
+          stream_records, totals)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         timed("sharded", sharded_phase, det, paths["landscape"][1])
@@ -1863,7 +2038,8 @@ def run(reference, pose_cpu) -> int:
           totals)
     timed("examples", examples_phase, pose_cpu, pose_cpu_s, orbit_records, totals)
     timed("configs", configs_phase, card, totals)
-    log("phases 6-12", **phase_s)
+    timed("sweep", sweep_phase, card, sweep_records, totals)
+    log("phases 6-13", **phase_s)
     for phase, counts in totals.items():
         log("jax records", of=phase, **counts)
 

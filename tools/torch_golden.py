@@ -58,7 +58,12 @@ Inputs (numpy, the port's renderer):
     refinement, ``ARUCO_DEFAULT``): 4 VGA frames of uniform noise in 4x4
     blocks.  Config 2's noise frames leave no component after the 5x5
     opening; these leave about a thousand more than the 32 lanes hold, so
-    the lane selection and kernel 2's round limits run full.
+    the lane selection and kernel 2's round limits run full;
+* ``sweep_frames``: the settings users change, ``sweep_cases``
+  (``sweep.npz``; ``chip_smoke.py``'s phase 13): each field of
+  ``DetectorConfig`` at values no other record takes, odd frame shapes
+  and four- and one-channel frames (``sweep_cases`` says which);
+* ``stream_frames``: BASELINE config 5's stream (``stream.npz``; phase 7).
 
 Each record holds JAX's CPU route (its warp is the XLA pyramid warp) and,
 under ``pallas/``, the decode of JAX's quads by the Pallas warp of the
@@ -160,7 +165,21 @@ CONFIG4_CELL, CONFIG4_GRID, CONFIG4_SEED, CONFIG4_BATCH = 330, (10, 7), 2, 32
 BOARD_CELL, BOARD_GRID, BOARD_SEED = 130, (4, 3), 20
 TRACKER_SEED, CORRUPT_SEED, RGB_SEED, CLUTTER_SEED = 13, 14, 15, 16
 PERMISSIVE_NOISE_FRAMES, RGB_FRAMES, CLUTTER_FRAMES, CLUTTER_BLOCK = 8, 4, 4, 4
-CONFIG_DICTS = ("APRILTAG_16H5", "APRILTAG_25H7", "APRILTAG_25H9", "APRILTAG_36H10",
+# The sweep (``sweep.npz``): its board's dictionary and seed, the shapes'
+# dictionary, frames a shape and their seed, the seeds of the colour frames'
+# tints and alpha.
+SWEEP_DICT, SWEEP_SEED, SHAPE_DICT, SHAPE_FRAMES, SHAPE_SEED = (
+    "ARUCO_DEFAULT", 30, "ARUCO_MIP_36H12", 3, 31)
+CHANNEL_SEED = 32
+SMALL_TAGS_CELL, SMALL_TAGS_GRID = 52, (11, 8)
+SWEEP_SHAPES = ((241, 323), (479, 641), (555, 777), (250, 1000), (1000, 250), (190, 190),
+                (97, 131))
+SWEEP_S = (25, 36, 64, 81)
+# BASELINE config 5's stream (``stream.npz``): its dictionaries, streams a
+# dictionary, frames a stream, and the seed of stream 0's scene.
+STREAM_DICTS, STREAM_PER_DICT, STREAM_DEPTH, STREAM_SEED = (
+    ("ARUCO_MIP_36H12", "APRILTAG_36H11"), 2, 4, 50)
+CONFIG_DICTS =("APRILTAG_16H5", "APRILTAG_25H7", "APRILTAG_25H9", "APRILTAG_36H10",
                 "APRILTAG_36H11", "APRILTAG_36H9", "ARTAG", "ARTOOLKITPLUS", "ARTOOLKITPLUSBCH",
                 "ARUCO", "ARUCO_DEFAULT", "ARUCO_MIP_16H3", "ARUCO_MIP_25H7", "ARUCO_MIP_36H12",
                 "CHILITAGS")
@@ -541,6 +560,192 @@ def config_frames(name: str) -> np.ndarray:
             0, 256, (CLUTTER_FRAMES, h // k, w // k), dtype=np.uint8)
         return np.ascontiguousarray(np.repeat(np.repeat(small, k, axis=1), k, axis=2))
     raise KeyError(name)
+
+
+@dataclass(frozen=True)
+class SweepCase:
+    """A case of ``sweep.npz``: dictionary name, the port's
+    ``DetectorConfig``, its frames (a source of ``sweep_source``), driven
+    on the card at their count, and whether its point is lane overflow
+    (its frames may decode nothing)."""
+
+    dictionary: str
+    config: object
+    frames: str
+    overflow: bool = False
+
+
+def sweep_cases() -> dict:
+    """name -> ``SweepCase``, in the record's order: each field of
+    ``DetectorConfig`` users set, at values no other record takes (the
+    default is 7, 3, auto, 32, 12, 49, 0.2, 0.1, 0.05, True, "mxu"), and
+    odd frame shapes and channel counts.  A name is the settings, then
+    ``:noref`` (``refine_corners=False``, the tail route) and the frames'
+    source where it is not "mixed" (``sweep_source``).
+
+    - ``threshold_window`` 3 (on "small_tags", with the edge gate at 0.05),
+      5, 11, 21, and 11 on the tail route: kernel 1's tile plans at other
+      halos;
+    - ``ccl_rounds`` 1 (on "board"), 2, 6, and each on ``clutter``: kernel
+      2's round limits, components cut short;
+    - ``coarse_factor`` 2, 3, 5, 8: kernel 3's windows of 12-24 px; at 2
+      a 240x320 grid (76,800 cells), the label route with kernel 2 off
+      chip;
+    - ``max_candidates`` 1, 128, 129, 256 on ``clutter`` (1 and 128 on
+      both routes: kernel 2's fit mode and kernel 7 at their edges; 129
+      and 256: kernels 5 and 6), 256 on the mixed frames too, and 160 at
+      ``coarse_factor`` 2 on both (kernels 5 and 6 on the 240x320 grid,
+      kernel 6 off chip); ``max_inner_candidates`` 0 and 40;
+    - ``homography_sample_size`` 25, 36, 64, 81 on both routes: kernel
+      4's three templates, kernel 8's window sizes;
+    - the gates: ``min_side_length_factor`` 0.05,
+      ``min_corner_separation_factor`` 0.02 and 0.3,
+      ``contour_simplification_epsilon`` 0.02 (on "board") and 0.2,
+      ``filter_high_bit_errors=False``, ``warp_impl="gather"`` (tail);
+    - ``shape/HxW``: ``SWEEP_SHAPES`` at their automatic coarse factors
+      (2, 4, 5, 6, 6, 1, 1), 3 frames each;
+    - ``channels/4`` and ``channels/1``: the mixed frames as (4, 480, 640,
+      4) tinted colour with a random alpha, and as (4, 480, 640, 1).
+    """
+    from aruco3_tpu_torch import DetectorConfig
+
+    base = DetectorConfig()
+    cases = {}
+
+    def add(name, frames="mixed", overflow=False, dictionary=SWEEP_DICT, **fields):
+        cases[name] = SweepCase(dictionary, replace(base, **fields), frames, overflow)
+
+    # A 7x7 box (radius 3) leaves a cell black only within 3 px of its
+    # edge, which the 5x5 opening keeps only for cells of about 7 px: tags
+    # of 41 px, under the default edge gate of 96 px on VGA.
+    add("threshold_window=3,min_side_length_factor=0.05", "small_tags", threshold_window=3,
+        min_side_length_factor=0.05)
+    for v in (5, 11, 21):
+        add(f"threshold_window={v}", threshold_window=v)
+    add("threshold_window=11" + NOREF, threshold_window=11, refine_corners=False)
+    # One round leaves the turned markers of config 2's frames in pieces.
+    add("ccl_rounds=1", "board", ccl_rounds=1)
+    for v in (2, 6):
+        add(f"ccl_rounds={v}", ccl_rounds=v)
+    for v in (1, 2, 6):
+        add(f"ccl_rounds={v}:clutter", "clutter", True, ccl_rounds=v)
+    for v in (2, 3, 5, 8):
+        add(f"coarse_factor={v}", coarse_factor=v)
+    for v in (1, 128, 129, 256):
+        add(f"max_candidates={v}:clutter", "clutter", True, max_candidates=v)
+    for v in (1, 128):
+        add(f"max_candidates={v}{NOREF}:clutter", "clutter", True, max_candidates=v,
+            refine_corners=False)
+    add("max_candidates=256", max_candidates=256)
+    add("coarse_factor=2,max_candidates=160", coarse_factor=2, max_candidates=160)
+    add("coarse_factor=2,max_candidates=160:clutter", "clutter", True, coarse_factor=2,
+        max_candidates=160)
+    for v in (0, 40):
+        add(f"max_inner_candidates={v}", max_inner_candidates=v)
+    for v in SWEEP_S:
+        add(f"homography_sample_size={v}", homography_sample_size=v)
+        add(f"homography_sample_size={v}{NOREF}", homography_sample_size=v,
+            refine_corners=False)
+    add("min_side_length_factor=0.05", min_side_length_factor=0.05)
+    for v in (0.02, 0.3):
+        add(f"min_corner_separation_factor={v}", min_corner_separation_factor=v)
+    # At 0.02 the containment gate drops config 2's turned markers.
+    add("contour_simplification_epsilon=0.02", "board", contour_simplification_epsilon=0.02)
+    add("contour_simplification_epsilon=0.2", contour_simplification_epsilon=0.2)
+    add("filter_high_bit_errors=False", filter_high_bit_errors=False)
+    add("warp_impl=gather" + NOREF, warp_impl="gather", refine_corners=False)
+    for h, w in SWEEP_SHAPES:
+        add(f"shape/{h}x{w}", f"shape/{h}x{w}", dictionary=SHAPE_DICT)
+    for c in (4, 1):
+        add(f"channels/{c}", f"channels/{c}")
+    return cases
+
+
+def shape_frames(h: int, w: int) -> np.ndarray:
+    """``SHAPE_FRAMES`` (h, w) frames of ``SHAPE_DICT`` markers: the frame
+    cut into a grid of about 240-px tiles (at least one), one
+    ``random_marker_scene`` a tile (0.5-0.68 of its short side, corners
+    moved by up to 6% of it, noise 2)."""
+    from aruco3_tpu_torch import render
+
+    d = _dictionary(SHAPE_DICT)
+    rows, cols = max(1, h // 240), max(1, w // 240)
+    th, tw = h // rows, w // cols
+    rng = np.random.default_rng([SHAPE_SEED, h, w])
+    frames = []
+    for _ in range(SHAPE_FRAMES):
+        img = np.full((h, w), 255, dtype=np.uint8)
+        for r in range(rows):
+            for c in range(cols):
+                sub = render.random_marker_scene(d, int(rng.integers(0, len(d))), (tw, th),
+                                                 rng=rng, min_scale=0.5, max_scale=0.68,
+                                                 max_persp=0.06)[0]
+                img[r * th : (r + 1) * th, c * tw : (c + 1) * tw] = sub
+        frames.append(img)
+    return np.stack(frames)
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_source(source: str) -> np.ndarray:
+    """The frames of a ``SweepCase``: "board", a 480x640 board of 12
+    ``SWEEP_DICT`` tags (``board``) and the same turned half a turn;
+    "mixed", those and the first two of config 2's frames (1-4 markers
+    turned and tilted); "small_tags", a 480x640 board of 11x8 tags of 41
+    px (cell 52) and its half turn; "clutter", ``config_frames("clutter")``;
+    "shape/HxW", ``shape_frames``; "channels/4", the mixed frames tinted
+    (``tinted``) with a random alpha channel; "channels/1", the mixed
+    frames with a channel axis."""
+    if source == "board":
+        img = board(SWEEP_DICT, SWEEP_SEED)
+        return np.stack([img, np.ascontiguousarray(img[::-1, ::-1])])
+    if source == "mixed":
+        return np.concatenate([sweep_source("board"), config2_frames(False, 2)])
+    if source == "small_tags":
+        (h, w), (cols, rows) = CONFIG_HW, SMALL_TAGS_GRID
+        img = grid_frame(_dictionary(SWEEP_DICT), h, w, SMALL_TAGS_CELL,
+                         np.random.default_rng(SWEEP_SEED), cols, rows)[0]
+        return np.stack([img, np.ascontiguousarray(img[::-1, ::-1])])
+    if source == "clutter":
+        return config_frames("clutter")
+    if source.startswith("shape/"):
+        h, w = (int(v) for v in source[len("shape/"):].split("x"))
+        return shape_frames(h, w)
+    if source == "channels/4":
+        grey = sweep_source("mixed")
+        alpha = np.random.default_rng(CHANNEL_SEED).integers(0, 256, grey.shape + (1,), np.uint8)
+        return np.concatenate([tinted(grey, CHANNEL_SEED), alpha], axis=-1)
+    if source == "channels/1":
+        return np.ascontiguousarray(sweep_source("mixed")[..., None])
+    raise KeyError(source)
+
+
+def sweep_frames(name: str) -> np.ndarray:
+    """The recorded frames of case ``name`` of ``sweep_cases``."""
+    return sweep_source(sweep_cases()[name].frames)
+
+
+def stream_frames() -> dict:
+    """BASELINE config 5's stream (``benches/bench_configs.py:281-345``):
+    dictionary -> its ``STREAM_PER_DICT`` streams' frames, stream after
+    stream, ``STREAM_DEPTH`` each, (8, 1080, 1920) u8.  Each stream's scene
+    is ``render.bench_scene`` (8 markers; seed ``STREAM_SEED`` plus the
+    stream's index over both dictionaries); its frame k is that scene
+    rolled by 7k px along the rows and brightened by (3k) % 5 grey levels,
+    the per-tick change of ``config5_device`` (``:390-398``)."""
+    from aruco3_tpu_torch import render
+
+    h, w = LANDSCAPE_HW
+    out = {}
+    for j, name in enumerate(STREAM_DICTS):
+        frames = []
+        for s in range(STREAM_PER_DICT):
+            scene = render.bench_scene(_dictionary(name), (w, h),
+                                       seed=STREAM_SEED + j * STREAM_PER_DICT + s)[0]
+            for k in range(STREAM_DEPTH):
+                f = np.roll(scene, 7 * k, axis=1).astype(np.int32) + (3 * k) % 5
+                frames.append(np.clip(f, 0, 255).astype(np.uint8))
+        out[name] = np.stack(frames)
+    return out
 
 
 def stacked(rec: dict, n: int) -> dict:

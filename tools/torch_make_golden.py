@@ -29,7 +29,16 @@ Parts (all by default):
   ``build_packed_pyramid``'s levels 1 and 2 (the chain the frontend
   kernel's ``emit_level1`` starts), ``warp_patches_dma``'s samples and
   cell grids at levels 0-3 (the gather warp, interpret mode) and
-  ``warp_pallas.warp_eval``'s samples (interpret mode).
+  ``warp_pallas.warp_eval``'s samples (interpret mode);
+* ``configs``: the cases of ``torch_golden.config_cases`` (``configs.npz``);
+* ``sweep``: the cases of ``torch_golden.sweep_cases`` (``sweep.npz``):
+  each setting of ``DetectorConfig`` users change, odd frame shapes and
+  four- and one-channel frames, each refused unless the route's
+  Pallas-warp decode finds a marker on every frame (but where the case's
+  point is lane overflow);
+* ``stream``: BASELINE config 5's stream (``torch_golden.stream_frames``,
+  ``stream.npz``): each dictionary's 8 frames at batch 8, the batch of
+  ``chip_smoke.py``'s phase 7.
 
 Besides JAX's results (its CPU route, whose warp is the XLA pyramid warp
 ``warp_patches_mxu``), every input's record holds under ``pallas/`` the
@@ -85,7 +94,7 @@ from aruco3_tpu import rectify  # noqa: E402
 from aruco3_tpu.detector import _match_tail, _num_levels, detect_batch_arrays  # noqa: E402
 from aruco3_tpu.ops.warp_pallas import warp_eval  # noqa: E402
 
-PARTS = ("paths", "scenes", "orbit", "8k", "kernels", "configs")
+PARTS = ("paths", "scenes", "orbit", "8k", "kernels", "configs", "sweep", "stream")
 
 
 def jax_config(cfg) -> DetectorConfig:
@@ -144,9 +153,12 @@ def program(cfg: DetectorConfig, dictionary, h: int, w: int, with_pose: bool,
 
 def route_of(cfg: DetectorConfig, h: int, w: int) -> str:
     """The port's route for (h, w) frames (``detector.tail_route``): "refine"
-    (corner refinement and ds > 1, the JAX TPU route) or "tail"."""
+    (corner refinement and ds > 1, the JAX TPU route), or "tail", whose
+    warp is "gather" with ``warp_impl="gather"``."""
     params, _, _, ds = geometry(cfg, h, w)
-    return "refine" if params.refine and ds > 1 else "tail"
+    if params.refine and ds > 1:
+        return "refine"
+    return "gather" if cfg.warp_impl == "gather" else "tail"
 
 
 def pallas_decoder(cfg: DetectorConfig, dictionary, h: int, w: int, route: str):
@@ -155,8 +167,10 @@ def pallas_decoder(cfg: DetectorConfig, dictionary, h: int, w: int, route: str):
     interpret mode: "refine", the chain pyramid (``build_packed_pyramid``)
     through the gather warp ``warp_patches_dma`` and its fused decode;
     "tail", ``_warp_setup`` on the exact pyramid (``build_pyramid``) and
-    ``warp_eval``.  The homographies are computed op by op, as the port
-    computes them; the rest is one jitted program."""
+    ``warp_eval``; "gather" (the tail route with ``warp_impl="gather"``,
+    which no Pallas kernel warps), ``rectify.warp_patches``.  The
+    homographies are computed op by op, as the port computes them; the rest
+    is one jitted program."""
     s = cfg.homography_sample_size
     m = dictionary.get_mark_size()
     levels = _num_levels(h, w)
@@ -177,7 +191,12 @@ def pallas_decoder(cfg: DetectorConfig, dictionary, h: int, w: int, route: str):
 
         return jax.vmap(one)(grey, H, hv, quads, qv, stats)
 
-    fn = jax.jit(refine if route == "refine" else tail)
+    def gather(grey, H, hv, quads, qv, stats):
+        return jax.vmap(lambda g, hh, hvv, q, v, st: _match_tail(
+            q, v, hvv, rectify.warp_patches(g, hh, s), st, dictionary, cfg))(
+                grey, H, hv, quads, qv, stats)
+
+    fn = jax.jit({"refine": refine, "tail": tail, "gather": gather}[route])
 
     def decode(frames, quads, quad_valid, stats):
         H, hv = rectify.homography_square_to_quad(jnp.asarray(quads), s)
@@ -232,25 +251,76 @@ def path_record(path: str, frames) -> dict:
     return rec
 
 
-def config_record(name: str, programs: dict) -> dict:
-    """The record of case ``name`` of ``torch_golden.config_cases`` (keys
-    without the case prefix; ``batch_with_decode``, the route's Pallas
-    warp under ``pallas/``).  ``programs`` keeps the last case's program
-    and decoder by (dictionary, config, shape), for the next case of the
-    same key; a new key drops them and JAX's caches, since the compiled
-    programs of every case at once exhaust the process's memory maps."""
-    case = golden.config_cases()[name]
-    frames = golden.config_frames(name)
+def case_record(dict_name: str, config, frames, programs: dict) -> dict:
+    """The record of ``frames`` through the JAX package at the port config
+    ``config`` (keys without a prefix; ``batch_with_decode``, the route's
+    Pallas warp under ``pallas/``).  ``programs`` keeps the last call's
+    program and decoder by (dictionary, config, shape), for the next call
+    of the same key; a new key drops them and JAX's caches, since the
+    compiled programs of many cases at once exhaust the process's memory
+    maps."""
     h, w = frames.shape[1:3]
-    cfg = jax_config(case.config)
-    key = (case.dictionary, cfg, frames.shape)
+    cfg = jax_config(config)
+    key = (dict_name, cfg, frames.shape)
     if key not in programs:
         programs.clear()
         jax.clear_caches()
-        dictionary = ARDictionary.new_from_named_dict(case.dictionary)
+        dictionary = ARDictionary.new_from_named_dict(dict_name)
         programs[key] = (program(cfg, dictionary, h, w, True, with_grey=frames.ndim == 4),
                          pallas_decoder(cfg, dictionary, h, w, route_of(cfg, h, w)))
     return batch_with_decode(*programs[key], frames)[1]
+
+
+def config_record(name: str, programs: dict) -> dict:
+    """The record of case ``name`` of ``torch_golden.config_cases``
+    (``case_record``)."""
+    case = golden.config_cases()[name]
+    return case_record(case.dictionary, case.config, golden.config_frames(name), programs)
+
+
+def masked(rec: dict) -> dict:
+    """``rec`` with the float lanes that no comparison reads set to 0, so
+    that they compress to nothing: poses and corners of lanes without a
+    marker, quads of lanes without a quad, fits of lanes without a
+    component.  ``torch_golden.compare_batch`` reads them only where the
+    record's mask holds."""
+    out = dict(rec)
+    masks = {"": "marker_valid", "pallas/": "pallas/marker_valid"}
+    for prefix, mask in masks.items():
+        for key in golden.POSE_KEYS + ("marker_corners",):
+            if prefix + key in out:
+                out[prefix + key] = np.where(
+                    _lanes(out[mask], out[prefix + key]), out[prefix + key], 0)
+    out["quads"] = np.where(_lanes(out["quad_valid"], out["quads"]), out["quads"], 0)
+    used = out["fit_sizes"] > 0
+    for key in ("fit_quads", "fit_centroids"):
+        out[key] = np.where(_lanes(used, out[key]), out[key], 0)
+    return {k: np.asarray(v, rec[k].dtype) for k, v in out.items()}
+
+
+def _lanes(mask, a):
+    """A (B, K) lane mask broadcast against (B, K, ...) ``a``."""
+    return mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim))
+
+
+def sweep_record(name: str, programs: dict) -> dict:
+    """The record of case ``name`` of ``torch_golden.sweep_cases``
+    (``case_record``, ``masked``); raises unless the route's Pallas-warp decode finds a
+    marker on every frame, where the case's point is not lane overflow."""
+    case = golden.sweep_cases()[name]
+    rec = masked(case_record(case.dictionary, case.config, golden.sweep_frames(name), programs))
+    found = rec["pallas/marker_valid"].sum(axis=1)
+    if not case.overflow and (found == 0).any():
+        raise AssertionError(f"{name}: no marker found on frames {np.nonzero(found == 0)[0]}")
+    return rec
+
+
+def case_line(name: str, rec: dict, cfg, shape, seconds: float) -> str:
+    """One case's line of the maker's log."""
+    route = route_of(jax_config(cfg), *shape[1:3])
+    return (f"  {name}: {len(rec['hashes'])} frames, {route} route, "
+            f"{int(rec['quad_valid'].sum())} quads, {int(rec['pallas/marker_valid'].sum())} "
+            f"markers (XLA warp {int(rec['marker_valid'].sum())}), {seconds:.1f} s")
 
 
 def check_config_inputs() -> None:
@@ -473,16 +543,30 @@ def make(part: str) -> dict:
     if part == "configs":
         check_config_inputs()
         out, programs = {}, {}
-        for name in golden.config_cases():
+        for name, case in golden.config_cases().items():
             t0 = time.perf_counter()
             rec = config_record(name, programs)
             out.update({f"{name}/{k}": v for k, v in rec.items()})
-            h, w = golden.config_frames(name).shape[1:3]
-            route = route_of(jax_config(golden.config_cases()[name].config), h, w)
-            print(f"  {name}: {len(rec['hashes'])} frames, {route} route, "
-                  f"{int(rec['quad_valid'].sum())} quads, {int(rec['pallas/marker_valid'].sum())} "
-                  f"markers (XLA warp {int(rec['marker_valid'].sum())}), "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            print(case_line(name, rec, case.config, golden.config_frames(name).shape,
+                            time.perf_counter() - t0), flush=True)
+        return out
+    if part == "sweep":
+        out, programs = {}, {}
+        for name, case in golden.sweep_cases().items():
+            t0 = time.perf_counter()
+            rec = sweep_record(name, programs)
+            out.update({f"{name}/{k}": v for k, v in rec.items()})
+            print(case_line(name, rec, case.config, golden.sweep_frames(name).shape,
+                            time.perf_counter() - t0), flush=True)
+        return out
+    if part == "stream":
+        out, programs = {}, {}
+        for name, frames in golden.stream_frames().items():
+            t0 = time.perf_counter()
+            rec = masked(case_record(name, DetectorConfig(), frames, programs))
+            out.update({f"{name}/{k}": v for k, v in rec.items()})
+            print(case_line(name, rec, DetectorConfig(), frames.shape,
+                            time.perf_counter() - t0), flush=True)
         return out
     raise ValueError(part)
 
