@@ -51,6 +51,13 @@ detector's one compiled program per shape); on the CPU it runs
 Each route's warp samples what the JAX TPU kernel of that route samples:
 kernel 4 the gather warp's (``warp_patches_dma``), kernel 8 the Pallas
 ``warp_eval``'s (``rectify`` says how).
+
+Spans (``utils.profiling.span``): ``aruco3.detect`` around
+``Detector.detect_batch``; the stages ``aruco3.frontend`` (luma and kernel
+1), ``aruco3.segment`` (``candidates``), ``aruco3.rectify`` (homography,
+pyramid and warp; on the tail route the warp and the cells) and
+``aruco3.match`` (``match_tail``), which also split a captured graph's
+kernel nodes (``runtime.graph.Graph.stage_kernels``).
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from .ops.fit import fused_fit_batch
 from .ops.frontend import threshold_open_pool
 from .ops.refine import refine_corners
 from .ops.warp_decode import warp_decode
+from .utils import profiling
 
 
 @dataclass(frozen=True)
@@ -236,18 +244,20 @@ class Detector:
         frames (host or device) are copied into the shape's graph, which is
         replayed on the current stream; the outputs are fresh tensors and
         the call does not wait for them."""
-        images = torch.as_tensor(images)
-        if self.device.type == "cuda":
-            if images.dtype != torch.uint8 or images.ndim not in (3, 4):
-                raise ValueError(
-                    f"expected (B, H, W[, C]) uint8 frames, got {tuple(images.shape)} {images.dtype}"
-                )
-            return self._compiled(*images.shape)(images)
-        images = images.to(self.device)
-        params, min_edge, min_sep, ds = self.geometry(images.shape[1], images.shape[2])
-        return detect_batch_arrays(
-            images, self.dictionary, self.config, params, min_edge, min_sep, ds
-        )
+        with profiling.span("aruco3.detect"):
+            images = torch.as_tensor(images)
+            if self.device.type == "cuda":
+                if images.dtype != torch.uint8 or images.ndim not in (3, 4):
+                    raise ValueError(
+                        f"expected (B, H, W[, C]) uint8 frames, got {tuple(images.shape)} "
+                        f"{images.dtype}"
+                    )
+                return self._compiled(*images.shape)(images)
+            images = images.to(self.device)
+            params, min_edge, min_sep, ds = self.geometry(images.shape[1], images.shape[2])
+            return detect_batch_arrays(
+                images, self.dictionary, self.config, params, min_edge, min_sep, ds
+            )
 
     def detect(self, image) -> Detection:
         """One (H, W), (H, W, 3) or (H, W, 4) image -> ``Detection``."""
@@ -307,12 +317,13 @@ def detect_batch_arrays(
     marker_rot (B, K) int; marker_code (B, K, 2) int64 (lo, hi) words;
     marker_corners (B, K, 4, 2) f32 (corner 0 = marker top-left); stats, a
     dict of (B,) int32 counters."""
-    grey = frontend.rgb_to_luma_u8(images).contiguous()
-    _, h, w = grey.shape
     tail = tail_route(params, ds)
-    coarse, near, level1 = threshold_open_pool(
-        grey, cfg.threshold_window, params.open_radius, ds, chain=not tail
-    )
+    with profiling.span("aruco3.frontend"):
+        grey = frontend.rgb_to_luma_u8(images).contiguous()
+        coarse, near, level1 = threshold_open_pool(
+            grey, cfg.threshold_window, params.open_radius, ds, chain=not tail
+        )
+    _, h, w = grey.shape
     fused = not tail and fit_route(
         coarse.shape[1], coarse.shape[2], params.max_candidates, params.max_inner_candidates
     ) == "fused"
@@ -323,14 +334,15 @@ def detect_batch_arrays(
         return out
 
     s = cfg.homography_sample_size
-    H, h_valid = rectify.homography_square_to_quad(quads, s)
-    shapes = rectify.pyramid_level_shapes(h, w, rectify.num_levels(h, w))
-    uppers = rectify.upper_levels(level1, shapes)
-    lvl, tlx, tly = rectify.warp_windows(quads, shapes)
-    m = dictionary.get_mark_size()
-    patches, _, grids = warp_decode(
-        grey, uppers, H.contiguous(), lvl, tlx, tly, valid & h_valid, s, m
-    )
+    with profiling.span("aruco3.rectify"):
+        H, h_valid = rectify.homography_square_to_quad(quads, s)
+        shapes = rectify.pyramid_level_shapes(h, w, rectify.num_levels(h, w))
+        uppers = rectify.upper_levels(level1, shapes)
+        lvl, tlx, tly = rectify.warp_windows(quads, shapes)
+        m = dictionary.get_mark_size()
+        patches, _, grids = warp_decode(
+            grey, uppers, H.contiguous(), lvl, tlx, tly, valid & h_valid, s, m
+        )
     out = match_tail(quads, valid, h_valid, grids, stats, dictionary, cfg)
     out["patches"] = patches
     out["grey"] = grey
@@ -358,6 +370,11 @@ def candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused):
     from their coarse masks: ``fit_candidates``, kernel 3's corner
     refinement on ``near`` where ``params.refine`` and ds > 1, and
     ``segment.finalize_quads``."""
+    with profiling.span("aruco3.segment"):
+        return _candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused)
+
+
+def _candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused):
     cand, inner_coarse, labels2 = fit_candidates(coarse, params, ds, fused)
     quads = cand["quads"]
     if params.refine and ds > 1:
@@ -426,12 +443,13 @@ def decode_tail(grey, level1, quads, quad_valid, stats, dictionary, cfg):
     the gather warp; then ``rectify.otsu_cells`` and ``match_tail``."""
     s = cfg.homography_sample_size
     b, k = quad_valid.shape
-    H, h_valid = rectify.homography_square_to_quad(quads, s)
-    if cfg.warp_impl == "gather":
-        patches = rectify.warp_patches(grey, H, s)
-    else:
-        patches = rectify.warp_patches_mxu(grey, level1, H, quads, s)
-    _, grids = rectify.otsu_cells(patches.reshape(b * k, s, s), dictionary.get_mark_size())
+    with profiling.span("aruco3.rectify"):
+        H, h_valid = rectify.homography_square_to_quad(quads, s)
+        if cfg.warp_impl == "gather":
+            patches = rectify.warp_patches(grey, H, s)
+        else:
+            patches = rectify.warp_patches_mxu(grey, level1, H, quads, s)
+        _, grids = rectify.otsu_cells(patches.reshape(b * k, s, s), dictionary.get_mark_size())
     out = match_tail(quads, quad_valid, h_valid, grids, stats, dictionary, cfg)
     out["patches"] = patches
     return out
@@ -440,6 +458,11 @@ def decode_tail(grey, level1, quads, quad_valid, stats, dictionary, cfg):
 def match_tail(quads, quad_valid, h_valid, grids, stats, dictionary, cfg):
     """Grid tail, 4-rotation dictionary match, corner rotation and the
     rejection counters (``_match_tail`` of the JAX package), batched."""
+    with profiling.span("aruco3.match"):
+        return _match_tail(quads, quad_valid, h_valid, grids, stats, dictionary, cfg)
+
+
+def _match_tail(quads, quad_valid, h_valid, grids, stats, dictionary, cfg):
     b, k = quad_valid.shape
     m = dictionary.get_mark_size()
     bits, border_valid = rectify.decode_grids(grids.reshape(b * k, -1), m)

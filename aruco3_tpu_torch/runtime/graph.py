@@ -17,7 +17,11 @@ stream, so each call returns fresh tensors, as a JAX call does:
 * replay N+1 overwrites the static outputs only after call N's clones.
 
 A capture that fails raises, naming the operation it stopped at; there is
-no eager fallback.  Kernel launch counts (``ops.counters``) stay counts
+no eager fallback.  While it captures, each ``utils.profiling.span`` the
+function opens marks the capture graph's kernel nodes so far (libcuda
+``cuStreamGetCaptureInfo``), which gives the graph's stage map
+(``stage_kernels``); every capture adds a record to the profiling capture
+log.  Kernel launch counts (``ops.counters``) stay counts
 of kernels launched on the card: the increments the wrappers made while
 the graph was captured are taken back and added again on every replay.
 
@@ -40,6 +44,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import ops
+from ..utils import profiling
 
 # cuGraphNodeGetType's CU_GRAPH_NODE_TYPE_KERNEL; cuStreamIsCapturing's
 # CU_STREAM_CAPTURE_STATUS_ACTIVE.
@@ -95,14 +100,38 @@ def _clone(tree):
 def kernel_nodes(graph: torch.cuda.CUDAGraph) -> int:
     """Kernel nodes of a graph captured with ``keep_graph=True`` (libcuda
     API ``cuGraphGetNodes``)."""
+    return _kernel_nodes_of(ctypes.c_void_p(graph.raw_cuda_graph()))
+
+
+def capturing_kernel_nodes() -> int:
+    """Kernel nodes captured so far into the current stream's capture
+    graph (libcuda ``cuStreamGetCaptureInfo``); 0 where the stream is not
+    capturing."""
     cuda = _libcuda()
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    status, handle = ctypes.c_int(0), ctypes.c_void_p(None)
+    uid = ctypes.c_uint64(0)
+    rc = cuda.cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status), ctypes.byref(uid),
+                                        ctypes.byref(handle), None, None)
+    if rc != 0:
+        raise RuntimeError(f"cuStreamGetCaptureInfo failed ({rc})")
+    if status.value != _CAPTURE_ACTIVE or not handle.value:
+        return 0
+    return _kernel_nodes_of(handle)
+
+
+def _kernel_nodes_of(handle: ctypes.c_void_p) -> int:
+    cuda = _libcuda()
     count = ctypes.c_size_t(0)
-    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
+    rc = cuda.cuGraphGetNodes(handle, None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed ({rc})")
+    if count.value == 0:  # an empty array is refused
+        return 0
     nodes = (ctypes.c_void_p * count.value)()
-    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
+    rc = cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed ({rc})")
     kinds = ctypes.c_int(0)
     n = 0
     for node in nodes:
@@ -126,9 +155,12 @@ class Graph:
     device ``device``; for a function of several tensors, ``shape`` is a
     tuple of (shape, dtype) pairs and ``dtype`` None (``input_specs``).
 
-    ``capture_ms`` is the host time of the capture and instantiation (the
-    warm-up left out), ``pool_bytes`` what the memory pool grew by during
-    it, ``kernel_nodes`` the graph's kernel nodes."""
+    ``warmup_ms`` is the host time of the warm-up, ``capture_ms`` that of
+    the capture and instantiation, ``pool_bytes`` what the memory pool grew
+    by during it, ``kernel_nodes`` the graph's kernel nodes and
+    ``stage_kernels`` their split, in order, by the spans the function
+    opened at its outermost level ([(stage, kernel nodes)], "other" for
+    nodes outside them; the counts sum to ``kernel_nodes``)."""
 
     def __init__(self, fn: Callable, shape, dtype: torch.dtype | None, device, pool=None):
         dev = torch.device(device)
@@ -138,12 +170,14 @@ class Graph:
         specs = input_specs(shape, dtype)
         with torch.cuda.device(dev):
             self.inputs = [torch.zeros(s, dtype=d, device=dev) for s, d in specs]
+            t0 = time.perf_counter()
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 fn(*self.inputs)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
+            self.warmup_ms = 1e3 * (time.perf_counter() - t0)
 
             before = {id(c): c.launches for c in ops.counters()}
             torch.cuda.empty_cache()  # as the capture does first
@@ -158,7 +192,7 @@ class Graph:
             gc.disable()
             try:
                 with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-                    with watch:
+                    with watch, profiling.stage_map(capturing_kernel_nodes) as marks:
                         self.outputs = fn(*self.inputs)
             except Exception as e:
                 raise RuntimeError(
@@ -172,6 +206,12 @@ class Graph:
             self.graph.instantiate()
             self.capture_ms = 1e3 * (time.perf_counter() - t0)
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.stage_kernels = profiling.stages(marks, self.kernel_nodes)
+        profiling.log_capture({
+            "shape": [[list(s), str(d).removeprefix("torch.")] for s, d in specs],
+            "warmup_ms": self.warmup_ms, "capture_ms": self.capture_ms,
+            "kernel_nodes": self.kernel_nodes, "pool_bytes": self.pool_bytes,
+            "stage_kernels": self.stage_kernels})
         self.launches = []
         for c in ops.counters():
             n = c.launches - before.get(id(c), 0)
@@ -195,12 +235,15 @@ class Graph:
                 f"got {[(tuple(x.shape), x.dtype) for x in xs]}"
             )
         with torch.cuda.device(self.inputs[0].device):
-            for i, x in zip(self.inputs, xs):
-                i.copy_(x, non_blocking=x.is_cuda)
-            self.graph.replay()
+            with profiling.span("aruco3.graph.copy_in"):
+                for i, x in zip(self.inputs, xs):
+                    i.copy_(x, non_blocking=x.is_cuda)
+            with profiling.span("aruco3.graph.replay"):
+                self.graph.replay()
             for c, n in self.launches:
                 c.launches += n
-            return self.fresh()
+            with profiling.span("aruco3.graph.clone"):
+                return self.fresh()
 
 
 class GraphCache:
@@ -220,7 +263,8 @@ class GraphCache:
         once per graph."""
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = Graph(make(), shape, dtype, device, self.pool)
+            with profiling.span("aruco3.graph.capture"):
+                g = self.graphs[key] = Graph(make(), shape, dtype, device, self.pool)
             while len(self.graphs) > self.maxsize:
                 self.graphs.popitem(last=False)
         else:

@@ -1,23 +1,170 @@
-"""Tracing / profiling helpers; the counterpart of
-``aruco3_tpu/utils/profiling.py`` with the same API.
+"""Tracing / profiling helpers.
 
+  * ``span(name)`` — a host span around the body, on the wall clock
+    (``time.time_ns``, the clock the profiler's absolute timestamps map
+    onto), recorded only while a ``torch.profiler`` runs (torch's own
+    profiler state: outside one a span costs one flag read).  Each record
+    is (name, id, parent id, start_ns, end_ns), the parent the innermost
+    span open on the same thread; records go into a list of at most
+    ``SPAN_CAP`` (``spans()``, ``dropped()``, ``clear()``).
+  * ``stage_map`` — used by ``runtime.graph`` around a capture: every span
+    opened inside marks the capture graph's kernel-node count at its enter
+    and exit, profiler or not; ``stages`` turns the marks into the graph's
+    ordered (stage, kernel nodes).  ``log_capture`` / ``captures()`` keep
+    one record a captured graph (the capture log).
   * ``drain`` — wait for every computation feeding a result: synchronises
     the device of each CUDA tensor in a dict, list or tuple.
-  * ``StageTimer`` — wall-clock stage timing; ``time_fn`` times a function
-    with CUDA events where its result lies on the card.
   * ``trace`` — context manager around ``torch.profiler`` (CUDA activity
-    when a card is present) writing a Chrome trace into a directory.
+    when a card is present) writing a Chrome trace, the spans on a track
+    of their own, into a directory.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
 import tempfile
+import threading
 import time
-from collections import defaultdict
 
 import torch
+
+# Most span records kept (``dropped()`` counts the rest) and most capture
+# records kept.
+SPAN_CAP = 1 << 16
+CAPTURE_CAP = 1 << 12
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_records: list = []
+_dropped = 0
+_captures: list = []
+_ids = itertools.count(1)
+_local = threading.local()
+# During a capture: (thread id, kernel-node counter, marks, base depth).
+_marking = None
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "start", "record", "marks")
+
+    def __init__(self, name: str, record: bool):
+        self.name = name
+        self.record = record
+        self.marks = None
+
+    def __enter__(self):
+        stack = _stack()
+        self.id = next(_ids)
+        self.parent = stack[-1].id if stack else None
+        marking = _marking
+        if marking is not None and marking[0] == threading.get_ident():
+            self.marks = marking
+            marking[2].append((self.name, len(stack) - marking[3], "enter", marking[1]()))
+        stack.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        global _dropped
+        _stack().pop()
+        marking = self.marks
+        if marking is not None:
+            depth = len(_stack()) - marking[3]
+            marking[2].append((self.name, depth, "exit", marking[1]()))
+        if self.record:
+            if len(_records) < SPAN_CAP:
+                _records.append((self.name, self.id, self.parent, self.start, end))
+            else:
+                _dropped += 1
+        return False
+
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager timing its body as span ``name`` while a
+    ``torch.profiler`` runs (or marking a capture's stage map); else a
+    shared no-op."""
+    if _marking is None:
+        return _Span(name, True) if _profiler_enabled() else _NULL
+    return _Span(name, _profiler_enabled())
+
+
+def spans() -> list:
+    """The span records, (name, id, parent id or None, start_ns, end_ns),
+    in the order the spans ended."""
+    return list(_records)
+
+
+def dropped() -> int:
+    """Span records the cap left out since the last ``clear()``."""
+    return _dropped
+
+
+def clear() -> None:
+    """Forget every span record and the count of those dropped."""
+    global _dropped
+    _records.clear()
+    _dropped = 0
+
+
+@contextlib.contextmanager
+def stage_map(count):
+    """Inside, on this thread: each span marks ``count()`` (the capture
+    graph's kernel nodes so far) at its enter and exit.  Yields the list
+    of marks, (name, depth below the spans open at the start, "enter" or
+    "exit", count)."""
+    global _marking
+    marks = []
+    previous = _marking
+    _marking = (threading.get_ident(), count, marks, len(_stack()))
+    try:
+        yield marks
+    finally:
+        _marking = previous
+
+
+def stages(marks, total: int) -> list:
+    """The ordered [(stage, kernel nodes)] of a capture from its marks:
+    one entry a span opened at the outermost depth, and "other" for the
+    nodes captured outside every such span; the counts sum to ``total``."""
+    out, done, opened = [], 0, None
+    for name, depth, kind, n in marks:
+        if depth != 0:
+            continue
+        if kind == "enter":
+            if n > done:
+                out.append(("other", n - done))
+            opened, done = n, n
+        elif opened is not None:
+            out.append((name, n - opened))
+            opened, done = None, n
+    if total > done:
+        out.append(("other", total - done))
+    return out
+
+
+def log_capture(record: dict) -> None:
+    """Append one captured graph's record to the capture log."""
+    if len(_captures) < CAPTURE_CAP:
+        _captures.append(record)
+
+
+def captures() -> list:
+    """The capture log: one dict a captured graph (``runtime.graph``), in
+    the order of capture."""
+    return list(_captures)
 
 
 def _tensors(tree):
@@ -31,76 +178,39 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
-def _cuda_devices(tree) -> list[torch.device]:
-    return list(dict.fromkeys(t.device for t in _tensors(tree) if t.is_cuda))
-
-
 def drain(tree) -> None:
     """Force completion of every computation feeding ``tree``: synchronise
     each CUDA device holding one of its tensors (CPU tensors are done)."""
-    for dev in _cuda_devices(tree):
+    for dev in dict.fromkeys(t.device for t in _tensors(tree) if t.is_cuda):
         torch.cuda.synchronize(dev)
 
 
-class StageTimer:
-    """Accumulates per-stage wall times; ``report()`` pretty-prints."""
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, result=None):
-        t0 = time.perf_counter()
-        yield
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def time_fn(self, name: str, fn, *args, iters: int = 1):
-        """Time ``fn`` over ``iters`` calls after one warm-up call: with
-        CUDA events on the stream of the card that holds its result, else
-        with the host clock, draining once at the end."""
-        out = fn(*args)
-        drain(out)
-        devices = _cuda_devices(out)
-        if devices:
-            stream = torch.cuda.current_stream(devices[0])
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            for _ in range(iters):
-                out = fn(*args)
-            stop.record(stream)
-            drain(out)
-            stop.synchronize()
-            seconds = start.elapsed_time(stop) / 1e3
-        else:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                out = fn(*args)
-            drain(out)
-            seconds = time.perf_counter() - t0
-        self.totals[name] += seconds / iters
-        self.counts[name] += 1
-        return out
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            t = self.totals[name]
-            n = self.counts[name]
-            lines.append(f"{name:32s} {t * 1000:9.2f} ms total  x{n}")
-        return "\n".join(lines)
+def _add_spans(path: str, records: list) -> None:
+    """Add ``records`` to the Chrome trace at ``path`` as complete events
+    of a process of their own, on the trace's time base."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    pid = "aruco3 spans"
+    events = doc.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                   "args": {"name": pid}})
+    for name, sid, parent, start, end in records:
+        events.append({"ph": "X", "name": name, "cat": "aruco3", "pid": pid, "tid": 0,
+                       "ts": (start - base) / 1e3, "dur": (end - start) / 1e3,
+                       "args": {"id": sid, "parent": parent}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | None = None):
     """``torch.profiler`` over the body (CPU activity, and CUDA activity
-    when a card is present); writes ``trace.json``, a Chrome trace, into
-    ``log_dir`` (default: ``aruco3_tpu_torch_trace`` in the temporary
-    directory).  A no-op where the profiler cannot start; what the body
-    raises propagates."""
-    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "aruco3_tpu_torch_trace")
+    when a card is present); writes ``trace.json``, a Chrome trace with
+    the body's spans added, into ``log_dir`` (default: a new directory
+    made by ``tempfile.mkdtemp``).  A no-op where the profiler cannot
+    start; what the body raises propagates."""
+    log_dir = log_dir or tempfile.mkdtemp(prefix="aruco3_tpu_torch_trace_")
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -109,10 +219,13 @@ def trace(log_dir: str | None = None):
         prof.start()
     except RuntimeError:
         prof = None
+    first = len(_records)
     try:
         yield log_dir
     finally:
         if prof is not None:
             prof.stop()
             os.makedirs(log_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+            path = os.path.join(log_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            _add_spans(path, _records[first:])

@@ -1,0 +1,10 @@
+"""Host milliseconds a frame inside the program's eager pose solve (its
+``aruco3.pose`` span in ``pose.solve_normalized_batch``), summed over
+the traced stretch and divided by its frames.  Read under the profiler,
+which slows each launch on the host."""
+
+from portbench.harness import program_trace
+
+
+def read(ctx):
+    return program_trace.span_ms(ctx, "aruco3.pose", "frames")

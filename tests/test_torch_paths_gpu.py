@@ -172,6 +172,51 @@ def test_detect_batch_graph_equals_eager(route):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_graph_stage_map_and_spans(route):
+    """A capture splits the graph's kernel nodes by the detector's four
+    stage spans, in order, and logs itself; under a profiler of the device
+    alone a replay records its copy-in, replay and clone spans inside
+    ``aruco3.detect`` and launches the graph's kernel nodes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aruco3_tpu_torch.utils import profiling
+
+    dev = cuda_device()
+    cfg, (w, h), transpose = ROUTES[route]
+    det = Detector(cfg, ARDictionary.new_from_named_dict("ARUCO_DEFAULT"), device=dev)
+    frames = _frames(w, h, transpose).to(dev)
+    det.detect_batch(frames)  # captures
+    g = det.graphs.graphs[tuple(frames.shape)]
+    stages = ["aruco3.frontend", "aruco3.segment", "aruco3.rectify", "aruco3.match"]
+    assert [s for s, _ in g.stage_kernels if s != "other"] == stages
+    assert all(n > 0 for _, n in g.stage_kernels)
+    assert sum(n for _, n in g.stage_kernels) == g.kernel_nodes
+    log = profiling.captures()[-1]
+    assert log["shape"] == [[list(frames.shape), "uint8"]]
+    assert log["kernel_nodes"] == g.kernel_nodes and log["stage_kernels"] == g.stage_kernels
+    assert log["warmup_ms"] > 0 and log["capture_ms"] > 0
+    torch.cuda.synchronize()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        det.detect_batch(frames)
+        torch.cuda.synchronize()
+    recs = {r[0]: r for r in profiling.spans()}
+    assert set(recs) == {"aruco3.detect", "aruco3.graph.copy_in", "aruco3.graph.replay",
+                         "aruco3.graph.clone"}
+    top = recs["aruco3.detect"]
+    for name in ("aruco3.graph.copy_in", "aruco3.graph.replay", "aruco3.graph.clone"):
+        assert recs[name][2] == top[1] and top[3] <= recs[name][3] <= recs[name][4] <= top[4]
+    # CUDA runs a graph's copy nodes as kernels of its own
+    # (``memcpy32_post``): they are no kernel nodes.
+    kernels = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA
+               and not ev.name.startswith(("Memcpy", "Memset", "memcpy", "memset"))]
+    assert len(kernels) == g.kernel_nodes
+    profiling.clear()
+
+
+@pytest.mark.gpu
 def test_graph_outputs_are_fresh_and_shapes_alternate():
     """Call N's outputs stay as they were after call N+1 on other frames;
     two shapes alternated through one detector stay equal to eager."""

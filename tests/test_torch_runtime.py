@@ -5,7 +5,9 @@ double-buffered overlap; an end-to-end pipeline against ``detect_batch``;
 and the profiling and image-IO helpers (``utils.profiling``,
 ``utils.imageio``)."""
 
+import json
 import os
+import shutil
 import time
 
 import numpy as np
@@ -216,29 +218,31 @@ def test_stream_pipeline_end_to_end():
     assert lanes == 8
 
 
-def test_stage_timer_and_drain():
-    timer = profiling.StageTimer()
-    with timer.stage("sleep"):
-        time.sleep(0.01)
-    x = torch.arange(6.0)
-    out = timer.time_fn("double", lambda a: {"y": [a * 2, (a,)]}, x, iters=3)
-    assert torch.equal(out["y"][0], x * 2)
-    profiling.drain(out)  # CPU tensors: nothing to wait for
-    profiling.drain({"a": 1, "b": [None]})
-    assert timer.totals["sleep"] >= 0.01 and timer.counts["double"] == 1
-    report = timer.report()
-    assert report.splitlines()[0].startswith("sleep") and "double" in report
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "tr")) as log_dir:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("aruco3.test"):
+            time.sleep(0.001)
+            torch.ones(64, 64) @ torch.ones(64, 64)
+            time.sleep(0.001)
     assert log_dir == str(tmp_path / "tr")
-    assert os.path.getsize(os.path.join(log_dir, "trace.json")) > 0
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        doc = json.load(f)
+    spans = [e for e in doc["traceEvents"] if e.get("cat") == "aruco3"]
+    assert [(e["name"], e["ph"]) for e in spans] == [("aruco3.test", "X")]
+    mm = next(e for e in doc["traceEvents"] if e.get("name") == "aten::mm")
+    assert spans[0]["ts"] <= mm["ts"] <= mm["ts"] + mm["dur"] <= spans[0]["ts"] + spans[0]["dur"]
     with pytest.raises(ZeroDivisionError):
         with profiling.trace(str(tmp_path / "tr2")):
             1 / 0
     assert os.path.exists(tmp_path / "tr2" / "trace.json")
+    with profiling.trace() as fresh:
+        pass
+    with profiling.trace() as other:
+        pass
+    assert fresh != other and os.path.exists(os.path.join(fresh, "trace.json"))
+    shutil.rmtree(fresh)
+    shutil.rmtree(other)
+    profiling.clear()
 
 
 def test_imageio_round_trip(tmp_path):
