@@ -59,6 +59,7 @@ SIGNATURES = {
     "a3_refine": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     "a3_warp_decode": [_PTR] * 3 + [_INT] + [_PTR] * 9 + [_INT] * 7 + [_PTR],
     "a3_warp_eval": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+    "a3_ippe": [_PTR] * 2 + [_FLT] * 2 + [_PTR] * 3 + [_LL, _PTR],
 }
 
 _lib = None

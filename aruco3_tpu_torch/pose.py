@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .camera import CameraIntrinsics
+from .ops import ippe
 from .utils import profiling
 
 _DEGENERATE_EPS = 1e-6  # find_rotation_to_z stability guard
@@ -385,31 +386,22 @@ def solve_normalized_batch(normalized_image_points, marker_size_mm):
 
     normalized_image_points (..., 4, 2); marker_size_mm scalar or (...).
     Returns (rotations (..., 2, 3, 3), translations (..., 2, 3),
-    errors (..., 2)).  Spans (``utils.profiling.span``): ``aruco3.pose``
-    around the solve; ``aruco3.pose.homography``, ``.canonical`` and
-    ``.order`` around its three parts.
+    errors (..., 2)).  The leading axes go to ``ops.ippe.solve`` as one
+    axis of lanes: on the card one kernel launch (with a numeric marker
+    size, nothing else), on the CPU its plain version.  Spans
+    (``utils.profiling.span``): ``aruco3.pose`` around the solve; on the
+    plain path ``aruco3.pose.homography``, ``.canonical`` and ``.order``
+    around its three parts.
     """
     with profiling.span("aruco3.pose"):
         pts = torch.as_tensor(normalized_image_points, dtype=torch.float32)
-        if isinstance(marker_size_mm, numbers.Real):
-            obj = marker_square_on(float(marker_size_mm), pts.device)
-        else:
-            obj = make_marker_square(_f32(marker_size_mm).to(pts.device))
-        obj = torch.broadcast_to(obj, pts.shape[:-2] + (4, 3))
-        with profiling.span("aruco3.pose.homography"):
-            homography = compute_homography_from_marker_square(marker_size_mm, pts)
-        with profiling.span("aruco3.pose.canonical"):
-            rotations, translations, errors = solve_canonical_form(obj, pts, homography)
-        with profiling.span("aruco3.pose.order"):
-            swap = errors[..., 1] < errors[..., 0]
-            rotations = torch.where(
-                swap[..., None, None, None], rotations.flip(-3), rotations
-            )
-            translations = torch.where(
-                swap[..., None, None], translations.flip(-2), translations
-            )
-            errors = torch.where(swap[..., None], errors.flip(-1), errors)
-        return rotations, translations, errors
+        lead = pts.shape[:-2]
+        size = marker_size_mm
+        if not isinstance(size, numbers.Real):
+            size = torch.broadcast_to(_f32(size).to(pts.device), lead).reshape(-1).contiguous()
+        rotations, translations, errors = ippe.solve(pts.reshape(-1, 4, 2), size)
+        return (rotations.reshape(lead + (2, 3, 3)), translations.reshape(lead + (2, 3)),
+                errors.reshape(lead + (2,)))
 
 
 # --------------------------------------------------------------------------

@@ -40,8 +40,12 @@ Phases, each printing lines of numbers:
    ``rank_roots:inner`` and ``fit_lanes:inner``), after a line with the
    cluster size of kernel 5 and the lane group of kernel 6 per plane.
    Kernel 8 also decodes its samples and those of its plain version into
-   the same cell grids.  Kernels 1, 4 and 8 are held to their plain
-   versions bit for bit (max abs error 0.0), the others to 1e-3.  Then
+   the same cell grids.  The pose kernel (``ops/ippe.py``, kernel 9; no
+   TPU counterpart) poses every lane of the path's detect output, the
+   marker corners over the frame's size, invalid lanes as the detector
+   leaves them.  Kernels 1, 4, 8 and 9 are held to their plain versions
+   bit for bit (max abs error 0.0; for kernel 9 NaN where the plain
+   version has NaN), the others to 1e-3.  Then
    kernels 1 (refine mode: the bfloat16 chain's level 1, and level 2 by
    ``rectify.upper_levels``), 4 (samples and cell grids at pyramid levels
    0-3) and 8 on seeded probes, bit for bit against the JAX TPU kernels'
@@ -76,7 +80,8 @@ Phases, each printing lines of numbers:
    on that batch (device time, profiler) beside its bound there; each
    kernel against its plain version at its path's phase-3 shapes (CUDA
    events after warm-up, and the kernel's device time alone; kernels 3
-   and 4 on each of the three refine paths), on the portrait coarse
+   and 4 on each of the three refine paths; the pose kernel also at one
+   frame's lanes), on the portrait coarse
    planes at batch 128 the fused kernel 2 against
    labels mode + kernel 7, and on the noref quads at batch 128 kernel 8
    against ``grid_sample`` and the tail route's warp + decode against
@@ -219,7 +224,9 @@ after the first not counted); rank pool 10 per cell; fit chain 40 per
 member cell of each fitted lane plus one per cell to find the members;
 refine 8 per window pixel; warp 20 per sample plus 2,560 per lane for
 Otsu; window evaluation (kernel 8) 20 per sample of every lane, whose
-bytes are the windows, both coordinates and the samples.  ``library_ms``
+bytes are the windows, both coordinates and the samples; the pose (kernel
+9) 662 per lane (its float32 operations, counted in ``csrc/pose.cu``),
+whose bytes are the corners and the poses.  ``library_ms``
 is one PyTorch call that computes the same function where there is one:
 ``grid_sample`` (bilinear, zero padding, corners aligned) for kernel 8.
 """
@@ -246,7 +253,7 @@ NOREF_TOL_PX = 12.0
 INNER = ":inner"
 # Kernels held to their plain versions (and to the JAX TPU kernels' records,
 # ``kernel_records``) bit for bit.
-EXACT_KERNELS = ("frontend", "warp_decode", "warp_eval")
+EXACT_KERNELS = ("frontend", "warp_decode", "warp_eval", "ippe")
 # Phase-5 batch of each path.
 BATCHES = {"landscape": 128, "portrait": 128, "dense": 16, "noref": 128, "small": 512}
 HBM_BYTES_PER_S = 3.35e12
@@ -256,7 +263,7 @@ CUDA_NAMES = {"frontend": "frontend_kernel", "coarse_fit": "coarse_kernel",
               "coarse_labels": "coarse_kernel", "fused_fit": "fused_fit_kernel",
               "rank_roots": "rank_roots_kernel", "fit_lanes": "fit_lanes_kernel",
               "refine": "refine_kernel", "warp_decode": "warp_decode_kernel",
-              "warp_eval": "warp_eval_kernel"}
+              "warp_eval": "warp_eval_kernel", "ippe": "ippe_kernel"}
 # name -> (CUDA source, TPU kernel it replaces, path whose shapes its row reports)
 KERNELS = {
     "frontend": ("aruco3_tpu_torch/csrc/frontend.cu",
@@ -277,7 +284,10 @@ KERNELS = {
                     "aruco3_tpu/ops/warp_gather.py:53", "landscape"),
     "warp_eval": ("aruco3_tpu_torch/csrc/warp_eval.cu",
                   "aruco3_tpu/ops/warp_pallas.py:36", "noref"),
+    "ippe": ("aruco3_tpu_torch/csrc/pose.cu", "none (aruco3_tpu/pose.py is XLA's)", "landscape"),
 }
+# Float32 operations of the pose kernel a lane (``csrc/pose.cu``).
+POSE_OPS_PER_LANE = 662
 
 
 def log(phase: str, **nums) -> None:
@@ -359,7 +369,7 @@ def nbytes(*objs) -> int:
 
 def counters():
     """name -> Counter of every kernel wrapper."""
-    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine, warp_decode, warp_eval
+    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, ippe, refine, warp_decode, warp_eval
 
     return {
         "frontend": frontend.count,
@@ -371,13 +381,14 @@ def counters():
         "refine": refine.count,
         "warp_decode": warp_decode.count,
         "warp_eval": warp_eval.count,
+        "ippe": ippe.count,
     }
 
 
 def wrappers():
     """name -> (kernel wrapper, plain version on the same arguments)."""
     from aruco3_tpu_torch import segment
-    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine, warp_decode, warp_eval
+    from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, ippe, refine, warp_decode, warp_eval
 
     return {
         "frontend": (frontend.threshold_open_pool, frontend.plain),
@@ -389,19 +400,27 @@ def wrappers():
         "refine": (refine.refine_corners, refine.plain),
         "warp_decode": (warp_decode.warp_decode, warp_decode.plain),
         "warp_eval": (warp_eval.warp_eval, warp_eval.plain),
+        "ippe": (ippe.solve, ippe.plain),
     }
 
 
 def stage_inputs(frames, det):
     """The path's intermediate tensors for ``frames``: (name -> the
     arguments each kernel of the path gets, on the detector's route; the
-    tail route's warp inputs, or None on the refine route)."""
+    tail route's warp inputs, or None on the refine route).  The pose
+    kernel's are the path's marker corners over the frame's size, every
+    lane, as ``pose_step`` hands them over."""
     import torch
 
     from aruco3_tpu_torch import detector, rectify, segment
     from aruco3_tpu_torch.ops import coarse_fit, fit, frontend, refine
 
     params, min_edge, min_sep, ds = det.geometry(*frames.shape[1:])
+    h, w = frames.shape[1:3]
+    corners = detector.detect_batch_arrays(frames, det.dictionary, det.config,
+                                           *det.geometry(h, w))["marker_corners"]
+    scale = torch.tensor([float(w), float(h)], device=frames.device)
+    pose_args = ((corners / scale).reshape(-1, 4, 2), MARKER_MM)
     wn = segment.refine_window_size(params, ds)
     tail = detector.tail_route(params, ds)
     # Level 1 as the route takes it: the bfloat16 chain on the refine route.
@@ -442,6 +461,7 @@ def stage_inputs(frames, det):
         windows, ux, uy, bad = rectify.warp_setup(frames, level1, H, quads, s)
         args["warp_eval"] = (windows.reshape(-1, rectify.WARP_WIN, rectify.WARP_WIN),
                              ux.reshape(-1, s * s), uy.reshape(-1, s * s))
+        args["ippe"] = pose_args
         return args, {"grey": frames, "level1": level1, "H": H, "quads": quads,
                       "valid": valid & h_valid, "bad": bad.reshape(-1, s * s),
                       "mark": det.dictionary.get_mark_size()}
@@ -461,6 +481,7 @@ def stage_inputs(frames, det):
         frames, rectify.upper_levels(level1, shapes), H.contiguous(), lvl, tlx, tly,
         valid & h_valid, s, det.dictionary.get_mark_size(),
     )
+    args["ippe"] = pose_args
     return args, None
 
 
@@ -551,6 +572,14 @@ def compare(name, args, got, ref, tail=None):
 
         return ({"grid_mismatch": mismatches(grids(got), grids(ref))},
                 float((got - ref).abs().max()))
+    if name == "ippe":
+        counts, err = {}, 0.0
+        for key, a, b in zip(("rotations", "translations", "errors"), got, ref):
+            nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+            counts[f"{key}_nan_mismatch"] = mismatches(nan_a, nan_b)
+            diff = torch.where((a == b) | (nan_a & nan_b), 0.0, (a - b).abs())
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        return counts, err
     raise KeyError(name)
 
 
@@ -662,6 +691,8 @@ def work(name, args, got):
         return nbytes(args[2:7], got) + nv * s * s, nv * (20 * s * s + 2560)
     if name == "warp_eval":
         return nbytes(args, got), 20 * got.numel()
+    if name == "ippe":
+        return nbytes(args[0], got), POSE_OPS_PER_LANE * args[0].shape[0]
     raise KeyError(name)
 
 
@@ -1717,11 +1748,12 @@ CONFIG_TIMED = ("config1", "config2", "config2_noise", "config4")  # phase 12's 
 
 
 def case_kernels(det, shape):
-    """(route, kernels) of a (B, H, W[, C]) batch on the detector's route:
-    "tail" (kernel 1, kernel 2's labels mode, kernel 7 or kernels 5 and 6,
-    kernel 8; not 8 with ``warp_impl="gather"``), "fused" (kernels 1, 2 in
-    fit mode, 3 and 4) or "labels" (kernels 1, 2 in labels mode, 7 or 5
-    and 6, 3 and 4)."""
+    """(route, kernels) of a (B, H, W[, C]) batch through the detector's
+    detect + pose graph: "tail" (kernel 1, kernel 2's labels mode, kernel 7
+    or kernels 5 and 6, kernel 8; not 8 with ``warp_impl="gather"``),
+    "fused" (kernels 1, 2 in fit mode, 3 and 4) or "labels" (kernels 1, 2
+    in labels mode, 7 or 5 and 6, 3 and 4); the pose kernel on every
+    route."""
     from aruco3_tpu_torch import detector
     from aruco3_tpu_torch.ops.fit import MAX_LANES
 
@@ -1731,10 +1763,10 @@ def case_kernels(det, shape):
     fits = {"fused_fit"} if max(k1, k2) <= MAX_LANES else {"rank_roots", "fit_lanes"}
     if detector.tail_route(params, ds):
         warp = set() if det.config.warp_impl == "gather" else {"warp_eval"}
-        return "tail", {"frontend", "coarse_labels"} | warp | fits
+        return "tail", {"frontend", "coarse_labels", "ippe"} | warp | fits
     if detector.fit_route(-(-h // ds), -(-w // ds), k1, k2) == "fused":
-        return "fused", {"frontend", "coarse_fit", "refine", "warp_decode"}
-    return "labels", {"frontend", "coarse_labels", "refine", "warp_decode"} | fits
+        return "fused", {"frontend", "coarse_fit", "refine", "warp_decode", "ippe"}
+    return "labels", {"frontend", "coarse_labels", "refine", "warp_decode", "ippe"} | fits
 
 
 def config_timing(name, eager, graphed, frames, card) -> None:
@@ -1787,7 +1819,8 @@ def configs_phase(card, totals) -> None:
         jax_report(f"configs {name}", rep, totals)
         if case.detect_only:
             det.detect_batch(batch)  # its graph's warm-up and capture, then a replay
-            got = counted(f"configs {name} detect_batch", lambda: det.detect_batch(batch), kernels)
+            got = counted(f"configs {name} detect_batch", lambda: det.detect_batch(batch),
+                          kernels - {"ippe"})
             jax_report(f"configs {name} detect_batch",
                        golden.compare_batch(name, rec, frames, got, None, fits), totals)
         log("configs case", case=name, dictionary=case.dictionary, route=route,
@@ -2015,6 +2048,14 @@ def run(reference, pose_cpu, stream_frames) -> int:
         for name in ("refine", "warp_decode"):
             kernel_timing(name, path, table[name], args_of[path][name], phase3[path][name],
                           at_batch[path][name], launches_of[path][name], card)
+    # The pose kernel at one frame's lanes: a live camera's call.
+    pts = args_of["landscape"]["ippe"][0]
+    one = (pts[: pts.shape[0] // len(paths["landscape"][1])], MARKER_MM)
+    got = table["ippe"][0](*one)
+    counts, err = compare("ippe", one, got, table["ippe"][1](*one))
+    require(sum(counts.values()) == 0 and err == 0.0, "ippe at one frame's lanes: differs")
+    kernel_timing("ippe", "landscape", table["ippe"], one, (err, *work("ippe", one, got)),
+                  at_batch["landscape"]["ippe"], launches_of["landscape"]["ippe"], card)
     # Phases 6-12: parity, stream, sharded, spatial, detect_arrays, examples, configs.
     import torch.distributed as dist
 
