@@ -57,7 +57,13 @@ Spans (``utils.profiling.span``): ``aruco3.detect`` around
 1), ``aruco3.segment`` (``candidates``), ``aruco3.rectify`` (homography,
 pyramid and warp; on the tail route the warp and the cells) and
 ``aruco3.match`` (``match_tail``), which also split a captured graph's
-kernel nodes (``runtime.graph.Graph.stage_kernels``).
+kernel nodes (``runtime.graph.Graph.stage_kernels``); inside
+``aruco3.segment``, on every route, ``aruco3.segment.fit`` (kernel 2 in
+either mode, kernel 7 or kernels 5 and 6, the merge),
+``aruco3.segment.refine`` (the inner footprint and kernel 3; empty where
+nothing is refined) and ``aruco3.segment.finalize``, which split the
+segment stage's nodes again (``substage_kernels``).  A detector's graph
+logs its route (``Detector.route``) and its [outer, inner] lane counts.
 """
 
 from __future__ import annotations
@@ -184,6 +190,14 @@ def tail_route(params: segment.QuadParams, ds: int) -> bool:
     return not (params.refine and ds > 1)
 
 
+def route_of(params: segment.QuadParams, ds: int, hc: int, wc: int) -> str:
+    """"tail", "fused" or "labels": the route ``detect_batch_arrays`` takes
+    from an (hc, wc) coarse grid (``tail_route``, then ``fit_route``)."""
+    if tail_route(params, ds):
+        return "tail"
+    return fit_route(hc, wc, params.max_candidates, params.max_inner_candidates)
+
+
 # Graphs a Detector keeps (the JAX detector's ``lru_cache(maxsize=32)``).
 GRAPH_CACHE_SIZE = 32
 
@@ -228,7 +242,11 @@ class Detector:
         def pipeline(images):
             return detect_batch_arrays(images, dictionary, config, *geometry)
 
-        return self.graphs.get(shape, lambda: pipeline, shape, torch.uint8, self.device)
+        def describe():
+            params = geometry[0]
+            return self.route(h, w), [params.max_candidates, params.max_inner_candidates]
+
+        return self.graphs.get(shape, lambda: pipeline, shape, torch.uint8, self.device, describe)
 
     def geometry(self, height: int, width: int):
         """(params, min_edge, min_sep, ds) for an (height, width) frame."""
@@ -237,6 +255,12 @@ class Detector:
         min_edge = min(width, height) * cfg.min_side_length_factor
         min_sep = min(width, height) * cfg.min_corner_separation_factor
         return quad_params(cfg, ds), min_edge, min_sep, ds
+
+    def route(self, height: int, width: int) -> str:
+        """The route (``route_of``) of (height, width) frames, whose coarse
+        grid is ceil(H/ds) x ceil(W/ds)."""
+        params, _, _, ds = self.geometry(height, width)
+        return route_of(params, ds, -(-height // ds), -(-width // ds))
 
     def detect_batch(self, images) -> dict:
         """(B, H, W[, C]) uint8 frames -> dict of batched tensors on the
@@ -324,9 +348,7 @@ def detect_batch_arrays(
             grey, cfg.threshold_window, params.open_radius, ds, chain=not tail
         )
     _, h, w = grey.shape
-    fused = not tail and fit_route(
-        coarse.shape[1], coarse.shape[2], params.max_candidates, params.max_inner_candidates
-    ) == "fused"
+    fused = route_of(params, ds, coarse.shape[1], coarse.shape[2]) == "fused"
     quads, valid, stats = candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused)
     if tail:
         out = decode_tail(grey, level1, quads, valid, stats, dictionary, cfg)
@@ -375,29 +397,32 @@ def candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused):
 
 
 def _candidates(grey, near, coarse, params, min_edge, min_sep, ds, fused):
-    cand, inner_coarse, labels2 = fit_candidates(coarse, params, ds, fused)
+    with profiling.span("aruco3.segment.fit"):
+        cand, inner_coarse, labels2 = fit_candidates(coarse, params, ds, fused)
     quads = cand["quads"]
-    if params.refine and ds > 1:
-        if inner_coarse is None:  # label route: only refinement reads it
-            inner_coarse = (
-                segment.inner_footprint(labels2)
-                if params.max_inner_candidates > 0
-                else torch.zeros_like(coarse)
+    with profiling.span("aruco3.segment.refine"):
+        if params.refine and ds > 1:
+            if inner_coarse is None:  # label route: only refinement reads it
+                inner_coarse = (
+                    segment.inner_footprint(labels2)
+                    if params.max_inner_candidates > 0
+                    else torch.zeros_like(coarse)
+                )
+            quads = refine_corners(
+                grey,
+                near,
+                quads.contiguous(),
+                cand["centroids"].contiguous(),
+                inner_coarse,
+                cand["is_inner"].contiguous(),
+                cand["valid"].contiguous(),
+                ds,
+                segment.refine_window_size(params, ds),
             )
-        quads = refine_corners(
-            grey,
-            near,
-            quads.contiguous(),
-            cand["centroids"].contiguous(),
-            inner_coarse,
-            cand["is_inner"].contiguous(),
-            cand["valid"].contiguous(),
-            ds,
-            segment.refine_window_size(params, ds),
+    with profiling.span("aruco3.segment.finalize"):
+        return segment.finalize_quads(
+            quads, cand["valid"], cand["sizes"], cand["overflow"], params, min_edge, min_sep
         )
-    return segment.finalize_quads(
-        quads, cand["valid"], cand["sizes"], cand["overflow"], params, min_edge, min_sep
-    )
 
 
 def detect_from_masks(grey, black, coarse, dictionary, cfg, params, min_edge, min_sep, ds):

@@ -20,8 +20,9 @@ A capture that fails raises, naming the operation it stopped at; there is
 no eager fallback.  While it captures, each ``utils.profiling.span`` the
 function opens marks the capture graph's kernel nodes so far (libcuda
 ``cuStreamGetCaptureInfo``), which gives the graph's stage map
-(``stage_kernels``); every capture adds a record to the profiling capture
-log.  Kernel launch counts (``ops.counters``) stay counts
+(``stage_kernels``), and the spans one level below each stage split its
+nodes again (``substage_kernels``); every capture adds a record to the
+profiling capture log.  Kernel launch counts (``ops.counters``) stay counts
 of kernels launched on the card: the increments the wrappers made while
 the graph was captured are taken back and added again on every replay.
 
@@ -160,9 +161,14 @@ class Graph:
     by during it, ``kernel_nodes`` the graph's kernel nodes and
     ``stage_kernels`` their split, in order, by the spans the function
     opened at its outermost level ([(stage, kernel nodes)], "other" for
-    nodes outside them; the counts sum to ``kernel_nodes``)."""
+    nodes outside them; the counts sum to ``kernel_nodes``),
+    ``substage_kernels`` each stage's nodes split by the spans one level
+    below it (``profiling.substages``).  ``route`` and ``lanes``, where the
+    caller gives them (a detector's route and its [outer, inner] lane
+    counts), go into the capture log record as they are."""
 
-    def __init__(self, fn: Callable, shape, dtype: torch.dtype | None, device, pool=None):
+    def __init__(self, fn: Callable, shape, dtype: torch.dtype | None, device, pool=None,
+                 route: str | None = None, lanes: list | None = None):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph runs on a CUDA device, not {dev}")
@@ -207,11 +213,13 @@ class Graph:
             self.capture_ms = 1e3 * (time.perf_counter() - t0)
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.stage_kernels = profiling.stages(marks, self.kernel_nodes)
+        self.substage_kernels = profiling.substages(marks, self.kernel_nodes)
         profiling.log_capture({
             "shape": [[list(s), str(d).removeprefix("torch.")] for s, d in specs],
             "warmup_ms": self.warmup_ms, "capture_ms": self.capture_ms,
             "kernel_nodes": self.kernel_nodes, "pool_bytes": self.pool_bytes,
-            "stage_kernels": self.stage_kernels})
+            "stage_kernels": self.stage_kernels, "substage_kernels": self.substage_kernels,
+            "route": route, "lanes": lanes})
         self.launches = []
         for c in ops.counters():
             n = c.launches - before.get(id(c), 0)
@@ -255,16 +263,19 @@ class GraphCache:
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: OrderedDict = OrderedDict()
 
-    def get(self, key, make: Callable[[], Callable], shape, dtype, device) -> Graph:
+    def get(self, key, make: Callable[[], Callable], shape, dtype, device,
+            describe: Callable[[], tuple] | None = None) -> Graph:
         """The graph of ``key``; where the cache does not hold it, the
         function ``make()`` returns, captured for (``shape``, ``dtype``,
-        ``device``; several inputs as ``Graph`` takes them).  ``make``
-        runs once per capture, so the device constants it builds are built
-        once per graph."""
+        ``device``; several inputs as ``Graph`` takes them), with
+        ``describe()``'s (route, lanes) in its capture log record.  ``make``
+        and ``describe`` run once per capture, so the device constants
+        ``make`` builds are built once per graph and a hit costs neither."""
         g = self.graphs.get(key)
         if g is None:
+            route, lanes = describe() if describe is not None else (None, None)
             with profiling.span("aruco3.graph.capture"):
-                g = self.graphs[key] = Graph(make(), shape, dtype, device, self.pool)
+                g = self.graphs[key] = Graph(make(), shape, dtype, device, self.pool, route, lanes)
             while len(self.graphs) > self.maxsize:
                 self.graphs.popitem(last=False)
         else:

@@ -10,8 +10,9 @@
   * ``stage_map`` — used by ``runtime.graph`` around a capture: every span
     opened inside marks the capture graph's kernel-node count at its enter
     and exit, profiler or not; ``stages`` turns the marks into the graph's
-    ordered (stage, kernel nodes).  ``log_capture`` / ``captures()`` keep
-    one record a captured graph (the capture log).
+    ordered (stage, kernel nodes), ``substages`` splits each stage by the
+    spans one level below it.  ``log_capture`` / ``captures()`` keep one
+    record a captured graph (the capture log).
   * ``drain`` — wait for every computation feeding a result: synchronises
     the device of each CUDA tensor in a dict, list or tuple.
   * ``trace`` — context manager around ``torch.profiler`` (CUDA activity
@@ -135,13 +136,12 @@ def stage_map(count):
         _marking = previous
 
 
-def stages(marks, total: int) -> list:
-    """The ordered [(stage, kernel nodes)] of a capture from its marks:
-    one entry a span opened at the outermost depth, and "other" for the
-    nodes captured outside every such span; the counts sum to ``total``."""
-    out, done, opened = [], 0, None
-    for name, depth, kind, n in marks:
-        if depth != 0:
+def _split(marks, lo: int, hi: int, depth: int) -> list:
+    """[(span, kernel nodes)] of the nodes [lo, hi) split by the spans of
+    ``marks`` at ``depth``, "other" for the nodes outside them."""
+    out, done, opened = [], lo, None
+    for name, d, kind, n in marks:
+        if d != depth:
             continue
         if kind == "enter":
             if n > done:
@@ -150,8 +150,37 @@ def stages(marks, total: int) -> list:
         elif opened is not None:
             out.append((name, n - opened))
             opened, done = None, n
+    if hi > done:
+        out.append(("other", hi - done))
+    return out
+
+
+def stages(marks, total: int) -> list:
+    """The ordered [(stage, kernel nodes)] of a capture from its marks:
+    one entry a span opened at the outermost depth, and "other" for the
+    nodes captured outside every such span; the counts sum to ``total``."""
+    return _split(marks, 0, total, 0)
+
+
+def substages(marks, total: int) -> list:
+    """For each entry of ``stages(marks, total)``, in order, its kernel
+    nodes split by the spans one level below it ([(span, kernel nodes)],
+    "other" for the stage's nodes outside them); each list sums to its
+    stage's count."""
+    out, done, inner, start = [], 0, None, 0
+    for mark in marks:
+        name, depth, kind, n = mark
+        if depth == 0 and kind == "enter":
+            if n > done:
+                out.append([("other", n - done)])
+            inner, start, done = [], n, n
+        elif depth == 0 and inner is not None:
+            out.append(_split(inner, start, n, 1))
+            inner, done = None, n
+        elif inner is not None:
+            inner.append(mark)
     if total > done:
-        out.append(("other", total - done))
+        out.append([("other", total - done)])
     return out
 
 

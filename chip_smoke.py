@@ -1754,17 +1754,17 @@ def case_kernels(det, shape):
     "fused" (kernels 1, 2 in fit mode, 3 and 4) or "labels" (kernels 1, 2
     in labels mode, 7 or 5 and 6, 3 and 4); the pose kernel on every
     route."""
-    from aruco3_tpu_torch import detector
     from aruco3_tpu_torch.ops.fit import MAX_LANES
 
     h, w = shape[1:3]
-    params, _, _, ds = det.geometry(h, w)
+    params = det.geometry(h, w)[0]
     k1, k2 = params.max_candidates, params.max_inner_candidates
     fits = {"fused_fit"} if max(k1, k2) <= MAX_LANES else {"rank_roots", "fit_lanes"}
-    if detector.tail_route(params, ds):
+    route = det.route(h, w)
+    if route == "tail":
         warp = set() if det.config.warp_impl == "gather" else {"warp_eval"}
         return "tail", {"frontend", "coarse_labels", "ippe"} | warp | fits
-    if detector.fit_route(-(-h // ds), -(-w // ds), k1, k2) == "fused":
+    if route == "fused":
         return "fused", {"frontend", "coarse_fit", "refine", "warp_decode", "ippe"}
     return "labels", {"frontend", "coarse_labels", "refine", "warp_decode", "ippe"} | fits
 

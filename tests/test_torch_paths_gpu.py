@@ -5,6 +5,7 @@ Imports no JAX; the tests need the card and skip elsewhere:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_paths_gpu.py
 """
 
+import contextlib
 import time
 
 import numpy as np
@@ -214,6 +215,70 @@ def test_graph_stage_map_and_spans(route):
                and not ev.name.startswith(("Memcpy", "Memset", "memcpy", "memset"))]
     assert len(kernels) == g.kernel_nodes
     profiling.clear()
+
+
+ROUTE_OF = {"fused": "fused", "labels": "labels", "labels_k5_k6": "labels",
+            "tail_noref": "tail", "tail_gather": "tail", "tail_ds1": "tail"}
+SEGMENT_PARTS = ["aruco3.segment.fit", "aruco3.segment.refine", "aruco3.segment.finalize"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_graph_substages_route_and_lanes(route):
+    """A capture's log record splits each stage's kernel nodes by the spans
+    one level below it (the segment stage by its fit, refinement and
+    finalize, the other stages not at all), each split adding up to its
+    stage's nodes, and names the route and the [outer, inner] lanes."""
+    from aruco3_tpu_torch.utils import profiling
+
+    dev = cuda_device()
+    cfg, (w, h), transpose = ROUTES[route]
+    det = Detector(cfg, ARDictionary.new_from_named_dict("ARUCO_DEFAULT"), device=dev)
+    frames = _frames(w, h, transpose).to(dev)
+    det.detect_batch(frames)  # captures
+    g = det.graphs.graphs[tuple(frames.shape)]
+    log = profiling.captures()[-1]
+    assert log["route"] == det.route(*frames.shape[1:3]) == ROUTE_OF[route]
+    assert log["lanes"] == [cfg.max_candidates, cfg.max_inner_candidates]
+    subs = log["substage_kernels"]
+    assert subs == g.substage_kernels and len(subs) == len(g.stage_kernels)
+    for (stage, n), parts in zip(g.stage_kernels, subs):
+        assert sum(k for _, k in parts) == n, stage
+        names = [s for s, _ in parts if s != "other"]
+        assert names == (SEGMENT_PARTS if stage == "aruco3.segment" else []), stage
+    fit = dict(subs[[s for s, _ in g.stage_kernels].index("aruco3.segment")])
+    assert fit["aruco3.segment.fit"] > 0 and fit["aruco3.segment.finalize"] > 0
+    assert (fit["aruco3.segment.refine"] > 0) == (ROUTE_OF[route] != "tail")
+
+
+@pytest.mark.gpu
+def test_nested_spans_leave_the_stage_map_of_the_fused_1080p_graph(monkeypatch):
+    """The segment stage's nested spans add no kernel node and move no
+    stage boundary: the fused 1080p graph's ``kernel_nodes`` and
+    ``stage_kernels`` with them equal those of the same capture without
+    them."""
+    from aruco3_tpu_torch.utils import profiling
+
+    dev = cuda_device()
+    frames = torch.zeros((2, 1080, 1920), dtype=torch.uint8, device=dev)
+    d = ARDictionary.new_from_named_dict("ARUCO_MIP_36H12")
+
+    def capture():
+        det = Detector(DetectorConfig(), d, device=dev)
+        assert det.route(1080, 1920) == "fused"
+        det.detect_batch(frames)
+        return det.graphs.graphs[tuple(frames.shape)], profiling.captures()[-1]
+
+    with_parts, log = capture()
+    span = profiling.span
+    monkeypatch.setattr(profiling, "span", lambda name: (
+        contextlib.nullcontext() if name.startswith("aruco3.segment.") else span(name)))
+    without = capture()[0]
+    assert with_parts.kernel_nodes == without.kernel_nodes
+    assert with_parts.stage_kernels == without.stage_kernels == log["stage_kernels"]
+    seg = [s for s, _ in log["stage_kernels"]].index("aruco3.segment")
+    assert [s for s, _ in without.substage_kernels[seg]] == ["other"]
+    assert [s for s, _ in with_parts.substage_kernels[seg]] == SEGMENT_PARTS
 
 
 @pytest.mark.gpu

@@ -5,6 +5,7 @@ its spans, and ``drain``."""
 
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -15,6 +16,14 @@ from torch_twin import make_scene
 
 STAGES = ["aruco3.frontend", "aruco3.segment", "aruco3.rectify", "aruco3.match"]
 POSE_PARTS = ["aruco3.pose.homography", "aruco3.pose.canonical", "aruco3.pose.order"]
+SEGMENT_PARTS = ["aruco3.segment.fit", "aruco3.segment.refine", "aruco3.segment.finalize"]
+# (config, frame (w, h), transpose, the route ``Detector.route`` names).
+ROUTES = {
+    "fused": (DetectorConfig(), (320, 240), False, "fused"),
+    "labels": (DetectorConfig(), (320, 240), True, "labels"),  # portrait: kernel 7
+    "labels_k5_k6": (DetectorConfig(max_candidates=160), (320, 240), False, "labels"),
+    "tail": (DetectorConfig(refine_corners=False), (320, 240), False, "tail"),
+}
 
 
 @pytest.fixture(autouse=True)
@@ -54,14 +63,37 @@ def test_detect_and_pose_spans_nest_under_a_profiler():
     for name, sid, parent, start, end in recs:
         assert name not in by_name and start <= end
         by_name[name] = (sid, parent, start, end)
-    assert set(by_name) == {"aruco3.detect", "aruco3.pose", *STAGES, *POSE_PARTS}
-    for outer, inner in (("aruco3.detect", STAGES), ("aruco3.pose", POSE_PARTS)):
+    assert set(by_name) == {"aruco3.detect", "aruco3.pose", *STAGES, *SEGMENT_PARTS, *POSE_PARTS}
+    for outer, inner in (("aruco3.detect", STAGES), ("aruco3.pose", POSE_PARTS),
+                         ("aruco3.segment", SEGMENT_PARTS)):
         sid, parent, start, end = by_name[outer]
-        assert parent is None
+        assert parent == (by_name["aruco3.detect"][0] if outer == "aruco3.segment" else None)
         kids = [by_name[n] for n in inner]
         assert all(k[1] == sid and start <= k[2] <= k[3] <= end for k in kids)
         assert [k[2] for k in kids] == sorted(k[2] for k in kids)  # in the pipeline's order
     assert by_name["aruco3.detect"][3] <= by_name["aruco3.pose"][2]
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_segment_parts_nest_inside_the_segment_span_on_every_route(route):
+    """On each route ``aruco3.segment`` holds the fit, the refinement (empty
+    where nothing is refined) and the finalize, in that order, and nothing
+    else; ``Detector.route`` names the route the frames take."""
+    cfg, (w, h), transpose, name = ROUTES[route]
+    img, ids = make_scene("single", w, h)
+    if transpose:  # the mirror image: another code of the dictionary
+        img, ids = np.ascontiguousarray(img.T), {320}
+    det = Detector(cfg, ARDictionary.new_from_named_dict("ARUCO_DEFAULT"), device="cpu")
+    assert det.route(*img.shape) == name
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = det.detect_batch(torch.from_numpy(img)[None])
+    assert {int(i) for i in out["marker_id"][out["marker_valid"]]} == ids
+    recs = profiling.spans()
+    (seg,) = [r for r in recs if r[0] == "aruco3.segment"]
+    kids = [r for r in recs if r[2] == seg[1]]
+    assert [k[0] for k in sorted(kids, key=lambda r: r[3])] == SEGMENT_PARTS
+    assert all(seg[3] <= k[3] <= k[4] <= seg[4] for k in kids)
+    assert not any(r[2] == k[1] for k in kids for r in recs)
 
 
 def test_spans_share_the_profilers_clock():
@@ -122,6 +154,33 @@ def test_stage_map_splits_a_capture_by_its_outermost_spans():
                     pass
     assert [m[:2] for m in marks] == [("aruco3.frontend", 0)] * 2
     assert profiling.stages(marks, 9) == [("other", 7), ("aruco3.frontend", 0), ("other", 2)]
+
+
+def test_substages_split_each_stage_by_the_spans_one_level_below():
+    """``substages`` gives, for each entry of ``stages``, its nodes split by
+    the spans one level down ("other" for the rest); each list sums to its
+    stage's count, and spans two levels down do not split it."""
+    nodes = iter(range(100))
+    with profiling.stage_map(lambda: next(nodes) * 10) as marks:
+        with profiling.span("aruco3.frontend"):  # 0 .. 10
+            pass
+        with profiling.span("aruco3.segment"):  # 20 .. 90
+            with profiling.span("aruco3.segment.fit"):  # 30 .. 60
+                with profiling.span("aruco3.segment.fit.deep"):
+                    pass
+            with profiling.span("aruco3.segment.refine"):  # 70 .. 80
+                pass
+    stages = profiling.stages(marks, 100)
+    assert stages == [("aruco3.frontend", 10), ("other", 10), ("aruco3.segment", 70),
+                      ("other", 10)]
+    subs = profiling.substages(marks, 100)
+    assert subs == [[("other", 10)], [("other", 10)],
+                    [("other", 10), ("aruco3.segment.fit", 30), ("other", 10),
+                     ("aruco3.segment.refine", 10), ("other", 10)],
+                    [("other", 10)]]
+    assert [sum(n for _, n in p) for p in subs] == [n for _, n in stages]
+    assert profiling.substages([], 5) == [[("other", 5)]] and profiling.stages([], 5) == [
+        ("other", 5)]
 
 
 def test_drain_waits_on_nothing_for_host_tensors():
