@@ -19,9 +19,31 @@
 //
 // What bounds it on an H100: latency.  At the default QuadParams a frame
 // takes 54 dependent rounds (45 flood, 9 CCL), each a chain of steps
-// separated by block barriers, on a grid (108x192) far too small to keep
-// an SM's issue slots busy.  Design: one block per frame, everything on
-// chip.
+// separated by barriers, on a grid far too small to keep an SM's issue
+// slots busy.  So a frame's planes stay on chip, in one of three layouts
+// (the wrapper's plan, ops.coarse_fit.plan, picks one):
+//   * smem: one block a frame, every plane in its shared memory (grids
+//     below 65,536 cells that fit: the fused route's 108x192 and 120x160,
+//     labels mode on portrait 1080p).
+//   * cluster (labels mode only): a thread-block cluster of C blocks a
+//     frame (any C from 2 to 8; the plan takes 8), block r a band of
+//     whole rows in its own shared memory, each plane with a halo row above
+//     and below (a3_coarse_cluster_layout; the dense 4K cell's 216x384).
+//     Row work stays in a block; three kinds of step cross a band edge: a
+//     neighbour read (flood OR, dil3, the CCL's 4-neighbour min) reads the
+//     adjacent bands' edge rows into the halo through distributed shared
+//     memory (DSMEM) first; a column run is scanned a thread a column in
+//     each band, each band publishes its column summaries (run-end value,
+//     run-start value, pass-through) and, after a cluster barrier, combines
+//     those of the bands before and after it, then writes; and the peel's
+//     early exit is a cluster-wide OR.  Barriers that order such steps are
+//     cluster barriers; no DSMEM access follows the last one.  On an H100
+//     (700 W) a batch of 16 dense 4K frames takes 0.38 ms on clusters of 8
+//     blocks of 512 threads, against 3.66 ms in device scratch.
+//   * scratch: one block a frame, int32 planes in device scratch (grids no
+//     block holds in fit mode, and grids no cluster of 8 holds, such as
+//     1080x1920 at coarse_factor 1).
+// One block a frame (smem, scratch):
 //   * Flood planes are bit planes, 32 columns a word, rows of nw words at
 //     an odd word pitch (ten 108x192 planes: 30 KB).  A round is two
 //     barrier-separated steps: a thread per row takes the neighbour OR
@@ -48,13 +70,22 @@
 // Critical path at the defaults: 45 x 2 + 9 x 2 = 108 barrier steps, each
 // a chain of ~nw word steps (row transport) or three register passes and
 // ~20 dependent shuffles (run scans), plus each fit's ~30 barriers.
-// Grids too large for shared memory (or with 65,536 cells or more) run the
-// same body on int32 labels and planes in device scratch (coarse_layout
-// decides, and a3_coarse_layout tells the wrapper).  Threads per block
-// come from ops.fit.threads_per_block: 1,024 when the batch fits the
-// card's SMs once, fewer when several blocks share an SM.
+// The scratch layout runs the same body on int32 labels and planes in
+// device memory (coarse_layout decides, and a3_coarse_layout tells the
+// wrapper).  The cluster layout runs it too, on its band of rows, with
+// its own barrier, halo and column steps (the Band policy below; the
+// one-block layouts' Whole policy compiles them away).  Threads per block
+// come from ops.fit.threads_per_block for one block a frame (1,024 when
+// the batch fits the card's SMs once, fewer when several blocks share an
+// SM); clusters take 512 (ops.coarse_fit.CLUSTER_THREADS: at 1,024 a block
+// fills an SM's registers and an H100 holds 15 clusters of 8 at once, at
+// 512 it holds 30).
+
+#include <cooperative_groups.h>
 
 #include "fit_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -63,6 +94,11 @@ using a3fit::FitParams;
 using a3fit::FitPtrs;
 
 constexpr int N_PLANES = 10;
+constexpr int CLUSTER_MAX = 8;  // portable cluster size (ops.fit.RANK_CLUSTER_MAX)
+
+// Rows (or cells) a lane holds in registers at once in the run scans, so
+// that their loads issue together.
+constexpr int PC = 8;
 
 struct Params {
   int k1, k2, kr1, kr2;
@@ -112,6 +148,33 @@ a3fit::Layout coarse_layout(int hc, int wc, int fit_ints) {
   return {false, 0, lab2 + 2LL * s.P + fit_ints + static_cast<long long>(N_PLANES) * hc * s.npw};
 }
 
+// The cluster layout's shared memory a block, for clusters of c blocks:
+// a band of `rows` rows (the last band fewer), each of its ten bit planes
+// and two int32 label planes stored with a halo row above and below; then
+// the column summaries (three ints a column) and the exit flags.
+struct BandLayout {
+  int rows;
+  long long plane_words, label_ints, bytes;
+};
+
+__host__ __device__ inline BandLayout band_layout(int hc, int wc, int c) {
+  const Geo g = make_geo(hc, wc, false);
+  BandLayout l;
+  l.rows = (hc + c - 1) / c;
+  l.plane_words = (l.rows + 2LL) * g.npw;
+  l.label_ints = (l.rows + 2LL) * g.lp;
+  l.bytes = 4 * (N_PLANES * l.plane_words + 2 * l.label_ints + 3LL * wc + CLUSTER_MAX);
+  return l;
+}
+
+// On chip when c is 2 to 8, every band has a row and a band fits.
+a3fit::Layout cluster_layout(int hc, int wc, int c) {
+  if (c < 2 || c > CLUSTER_MAX || hc <= 0 || wc <= 0) return {false, 0, 0};
+  const BandLayout l = band_layout(hc, wc, c);
+  if ((c - 1) * l.rows >= hc || l.bytes > a3fit::SMEM_MAX) return {false, 0, 0};
+  return {true, l.bytes, 0};
+}
+
 __device__ __forceinline__ uint32_t wmask(const Geo& g, int j) {
   return j == g.nw - 1 ? g.last : 0xffffffffu;
 }
@@ -146,32 +209,247 @@ __device__ __forceinline__ uint32_t dil3(const uint32_t* X, const Geo& g, int y,
   return hdil(l, vor(X, g, y, j), r) & wmask(g, j);
 }
 
-// f(q, y, j) for every word of a plane (q = y * npw + j).
-template <class F>
-__device__ __forceinline__ void each_word(const Geo& g, F f) {
-  for (int i = threadIdx.x; i < g.hc * g.nw; i += blockDim.x) {
-    const int y = i / g.nw;
-    const int j = i - y * g.nw;
+// The rows a block holds and how its steps meet.  Planes are addressed by
+// frame row y everywhere (a band's pointers are shifted by its first row).
+//
+// Whole: one block a frame holds every row; block barriers, no halo.
+struct Whole {
+  static constexpr bool split = false;
+  __device__ Whole(int, int, uint32_t*) {}
+  __device__ __forceinline__ int frame() const { return blockIdx.x; }
+  __device__ __forceinline__ int y0() const { return 0; }
+  __device__ __forceinline__ int y1(const Geo& g) const { return g.hc; }
+  __device__ __forceinline__ int plane_rows(const Geo& g) const { return g.hc; }
+  __device__ __forceinline__ int shift(int) const { return 0; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  template <class T>
+  __device__ __forceinline__ void halo(T*, int) const {}
+  __device__ __forceinline__ bool any(bool p) const { return __syncthreads_or(p); }
+};
+
+// Band: block r of a cluster of c holds rows [ya, yb), stored from a halo
+// row (ya - 1) to a halo row (yb); every band but the last has `rows` rows.
+struct Band {
+  static constexpr bool split = true;
+  int r, c, rows, ya, yb;
+  int* sum;    // column summaries: run-end, run-start, pass-through (wc each)
+  int sum_w;
+  int* flags;  // the exit flags of the cluster's blocks
+  __device__ Band(int hc, int wc, uint32_t* dyn) {
+    cg::cluster_group cl = cg::this_cluster();
+    c = static_cast<int>(cl.num_blocks());
+    r = static_cast<int>(cl.block_rank());
+    const BandLayout l = band_layout(hc, wc, c);
+    rows = l.rows;
+    ya = r * rows;
+    yb = min(hc, ya + rows);
+    sum = reinterpret_cast<int*>(dyn) + N_PLANES * l.plane_words + 2 * l.label_ints;
+    sum_w = wc;
+    flags = sum + 3 * wc;
+  }
+  __device__ __forceinline__ int frame() const { return blockIdx.y; }
+  __device__ __forceinline__ int y0() const { return ya; }
+  __device__ __forceinline__ int y1(const Geo&) const { return yb; }
+  __device__ __forceinline__ int plane_rows(const Geo&) const { return rows + 2; }
+  __device__ __forceinline__ int shift(int pitch) const { return (1 - ya) * pitch; }
+  __device__ __forceinline__ void sync() const { cg::this_cluster().sync(); }
+
+  // The halo rows of X (row pitch `pitch`) from the adjacent bands: row
+  // ya - 1 is band r - 1's last row, row yb band r + 1's first.  Their
+  // rows must be final (a cluster barrier since they were written).
+  // Ends with a block barrier.
+  template <class T>
+  __device__ void halo(T* X, int pitch) const {
+    cg::cluster_group cl = cg::this_cluster();
+    for (int i = threadIdx.x; i < 2 * pitch; i += blockDim.x) {
+      const bool below = i >= pitch;
+      const int x = below ? i - pitch : i;
+      if (below ? r + 1 < c : r > 0) {
+        T* src = X + (below ? ya : ya + rows - 1) * pitch + x;
+        X[(below ? yb : ya - 1) * pitch + x] = *cl.map_shared_rank(src, below ? r + 1 : r - 1);
+      }
+    }
+    __syncthreads();
+  }
+
+  // Whether p holds on any thread of the cluster.  Each block writes its
+  // OR into every block's flag of it before the barrier, so nothing is
+  // read across the cluster after it.
+  __device__ bool any(bool p) const {
+    const int mine = __syncthreads_or(p);
+    cg::cluster_group cl = cg::this_cluster();
+    if (static_cast<int>(threadIdx.x) < c) *cl.map_shared_rank(flags + r, threadIdx.x) = mine;
+    cl.sync();
+    int all = 0;
+    for (int q = 0; q < c; ++q) all |= flags[q];
+    return all != 0;
+  }
+
+  // Summary k (0 run-end, 1 run-start, 2 pass-through) of column i in
+  // band q.
+  __device__ __forceinline__ int summary(int k, int i, int q) const {
+    return *cg::this_cluster().map_shared_rank(sum + k * sum_w + i, q);
+  }
+
+  // The flood's column runs, a thread a word column (32 columns): the
+  // band's summaries of T within M, a cluster barrier, then each column's
+  // carries from the bands before and after it, and the forward and
+  // backward passes into R.
+  __device__ void flood_columns(uint32_t* R, const uint32_t* M, const uint32_t* T,
+                                int nw, int npw) const {
+    for (int j = threadIdx.x; j < nw; j += blockDim.x) {
+      uint32_t f = 0u, b = 0u, p = 0xffffffffu;
+      for (int ys = ya; ys < yb; ys += PC) {
+        uint32_t mm[PC], tt[PC];
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          const int q = (ys + i) * npw + j;
+          mm[i] = ys + i < yb ? M[q] : 0xffffffffu;
+          tt[i] = ys + i < yb ? T[q] : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          f = mm[i] & (tt[i] | f);
+          p &= mm[i];
+          b |= tt[i] & p;
+        }
+      }
+      sum[j] = static_cast<int>(f);
+      sum[sum_w + j] = static_cast<int>(b);
+      sum[2 * sum_w + j] = static_cast<int>(p);
+    }
+    sync();
+    for (int j = threadIdx.x; j < nw; j += blockDim.x) {
+      uint32_t f = 0u, b = 0u;
+      for (int q = 0; q < r; ++q)
+        f = static_cast<uint32_t>(summary(0, j, q)) | (static_cast<uint32_t>(summary(2, j, q)) & f);
+      for (int q = c - 1; q > r; --q)
+        b = static_cast<uint32_t>(summary(1, j, q)) | (static_cast<uint32_t>(summary(2, j, q)) & b);
+      for (int ys = ya; ys < yb; ys += PC) {
+        uint32_t mm[PC], tt[PC];
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          const int q = (ys + i) * npw + j;
+          mm[i] = ys + i < yb ? M[q] : 0u;
+          tt[i] = ys + i < yb ? T[q] : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          if (ys + i < yb) {
+            f = mm[i] & (tt[i] | f);
+            R[(ys + i) * npw + j] = f;
+          }
+        }
+      }
+      // Backward over the forward values: each cell then holds its whole
+      // run's OR.
+      for (int ye = yb; ye > ya; ye -= PC) {
+        uint32_t mm[PC], rr[PC];
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          const int q = (ye - 1 - i) * npw + j;
+          mm[i] = ye - 1 - i >= ya ? M[q] : 0u;
+          rr[i] = ye - 1 - i >= ya ? R[q] : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          if (ye - 1 - i >= ya) {
+            b = mm[i] & (rr[i] | b);
+            R[(ye - 1 - i) * npw + j] = b;
+          }
+        }
+      }
+    }
+  }
+
+  // The CCL's column-run min of src into dst, a thread a column: as
+  // flood_columns, with run mins (identity and mask bound `sent`).
+  template <class L>
+  __device__ void ccl_columns(const L* src, L* dst, int wc, int lp, int sent) const {
+    for (int x = threadIdx.x; x < wc; x += blockDim.x) {
+      int f = sent, b = sent;
+      bool all = true;
+      for (int ys = ya; ys < yb; ys += PC) {
+        int v[PC];
+#pragma unroll
+        for (int i = 0; i < PC; ++i) v[i] = ys + i < yb ? static_cast<int>(src[(ys + i) * lp + x]) : sent;
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          if (ys + i >= yb) break;
+          const bool in = v[i] < sent;
+          f = in ? min(f, v[i]) : sent;
+          if (all && in) b = min(b, v[i]);
+          all = all && in;
+        }
+      }
+      sum[x] = f;
+      sum[sum_w + x] = b;
+      sum[2 * sum_w + x] = all;
+    }
+    sync();
+    for (int x = threadIdx.x; x < wc; x += blockDim.x) {
+      int f = sent, b = sent;
+      for (int q = 0; q < r; ++q) {
+        const int v = summary(0, x, q);
+        f = summary(2, x, q) ? min(f, v) : v;
+      }
+      for (int q = c - 1; q > r; --q) {
+        const int v = summary(1, x, q);
+        b = summary(2, x, q) ? min(b, v) : v;
+      }
+      for (int ys = ya; ys < yb; ys += PC) {
+        int v[PC];
+#pragma unroll
+        for (int i = 0; i < PC; ++i) v[i] = ys + i < yb ? static_cast<int>(src[(ys + i) * lp + x]) : sent;
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          if (ys + i >= yb) break;
+          f = v[i] < sent ? min(f, v[i]) : sent;
+          dst[(ys + i) * lp + x] = static_cast<L>(f);
+        }
+      }
+      for (int ye = yb; ye > ya; ye -= PC) {
+        int v[PC];
+#pragma unroll
+        for (int i = 0; i < PC; ++i)
+          v[i] = ye - 1 - i >= ya ? static_cast<int>(dst[(ye - 1 - i) * lp + x]) : sent;
+#pragma unroll
+        for (int i = 0; i < PC; ++i) {
+          if (ye - 1 - i < ya) break;
+          b = v[i] < sent ? min(b, v[i]) : sent;
+          dst[(ye - 1 - i) * lp + x] = static_cast<L>(b);
+        }
+      }
+    }
+  }
+};
+
+// f(q, y, j) for every word of the block's rows of a plane (q = y * npw + j).
+template <class B, class F>
+__device__ __forceinline__ void each_word(const Geo& g, const B& band, F f) {
+  for (int i = threadIdx.x; i < (band.y1(g) - band.y0()) * g.nw; i += blockDim.x) {
+    const int y = band.y0() + i / g.nw;
+    const int j = i - (y - band.y0()) * g.nw;
     f(y * g.npw + j, y, j);
   }
 }
 
-// f(y, x) for every cell.
-template <class F>
-__device__ __forceinline__ void each_cell(const Geo& g, F f) {
-  for (int p = threadIdx.x; p < g.P; p += blockDim.x) {
-    const int y = p / g.wc;
-    f(y, p - y * g.wc);
+// f(y, x) for every cell of the block's rows.
+template <class B, class F>
+__device__ __forceinline__ void each_cell(const Geo& g, const B& band, F f) {
+  for (int p = threadIdx.x; p < (band.y1(g) - band.y0()) * g.wc; p += blockDim.x) {
+    const int y = band.y0() + p / g.wc;
+    f(y, p - (y - band.y0()) * g.wc);
   }
 }
 
 // out[y, j] bit i = pred(y, 32j + i): a warp a word, one ballot.
-template <class F>
-__device__ __forceinline__ void pack(uint32_t* out, const Geo& g, F pred) {
+template <class B, class F>
+__device__ __forceinline__ void pack(uint32_t* out, const Geo& g, const B& band, F pred) {
   const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < g.hc * g.nw; i += blockDim.x >> 5) {
-    const int y = i / g.nw;
-    const int j = i - y * g.nw;
+  for (int i = threadIdx.x >> 5; i < (band.y1(g) - band.y0()) * g.nw; i += blockDim.x >> 5) {
+    const int y = band.y0() + i / g.nw;
+    const int j = i - (y - band.y0()) * g.nw;
     const int x = 32 * j + lane;
     const uint32_t w = __ballot_sync(0xffffffffu, x < g.wc && pred(y, x));
     if (lane == 0) out[y * g.npw + j] = w;
@@ -248,19 +526,18 @@ __device__ __forceinline__ int min_in_down(int v, bool p, int sent) {
   return lane == 31 ? sent : c;
 }
 
-// Rows (or cells) a lane holds in registers at once in the run scans, so
-// that their loads issue together.
-constexpr int PC = 8;
-
 // `R` holds medium & seed on entry and the flood after `rounds`; T is
-// scratch.  Ends with a barrier.
+// scratch.  The block's rows of R must be final across the cluster on
+// entry (band.sync()).  Ends with band.sync().
+template <class B>
 __device__ void flood(uint32_t* R, const uint32_t* M, uint32_t* T, int rounds, bool diag,
-                      const Geo& g) {
+                      const Geo& g, const B& band) {
   const int lane = threadIdx.x & 31;
   const int y0 = min(g.hc, lane * g.ch), y1 = min(g.hc, y0 + g.ch);
   for (int it = 0; it < rounds; ++it) {
+    band.halo(R, g.npw);
     // Neighbour OR and row runs: a thread a row.
-    for (int y = threadIdx.x; y < g.hc; y += blockDim.x) {
+    for (int y = band.y0() + threadIdx.x; y < band.y1(g); y += blockDim.x) {
       const uint32_t* __restrict__ r = R + y * g.npw;
       const uint32_t* __restrict__ up = y > 0 ? r - g.npw : nullptr;
       const uint32_t* __restrict__ dn = y < g.hc - 1 ? r + g.npw : nullptr;
@@ -293,6 +570,11 @@ __device__ void flood(uint32_t* R, const uint32_t* M, uint32_t* T, int rounds, b
         t[j] = __brev(run_up(__brev(m[j]), __brev(t[j]), carry));
     }
     __syncthreads();
+    if constexpr (B::split) {
+      band.flood_columns(R, M, T, g.nw, g.npw);
+      band.sync();
+      continue;
+    }
     // Column runs: a warp a word column, a lane ch rows.  One pass gives
     // the lane's run-end value f, run-start value b and pass-through p.
     for (int j = threadIdx.x >> 5; j < g.nw; j += blockDim.x >> 5) {
@@ -393,20 +675,21 @@ __device__ __forceinline__ void run_min(const L* src, L* dst, int stride, int i0
 
 // Round-limited 4-connected CCL of `blk` into lbl (initialised here); tmp
 // is a second label plane.  A cell is in `blk` iff its label is below the
-// sentinel P, so the run scans read no mask.  Ends with a barrier.
-template <class L>
-__device__ void ccl(L* lbl, const uint32_t* blk, L* tmp, int rounds, const Geo& g) {
+// sentinel P, so the run scans read no mask.  Ends with band.sync().
+template <class L, class B>
+__device__ void ccl(L* lbl, const uint32_t* blk, L* tmp, int rounds, const Geo& g, const B& band) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int P = g.P, lp = g.lp;
-  each_cell(g, [&](int y, int x) {
+  each_cell(g, band, [&](int y, int x) {
     lbl[y * lp + x] = static_cast<L>(bit(blk, g, y, x) ? y * g.wc + x : P);
   });
-  __syncthreads();
+  band.sync();
   const int x0 = min(g.wc, lane * g.cw), x1 = min(g.wc, x0 + g.cw);
   const int y0 = min(g.hc, lane * g.ch), y1 = min(g.hc, y0 + g.ch);
   for (int it = 0; it < rounds; ++it) {
+    band.halo(lbl, lp);
     // 4-neighbour min into tmp, then its row-run min: a warp a row.
-    for (int y = warp; y < g.hc; y += nwarps) {
+    for (int y = band.y0() + warp; y < band.y1(g); y += nwarps) {
       const L* __restrict__ r = lbl + y * lp;
       L* __restrict__ t = tmp + y * lp;
       const uint32_t* brow = blk + y * g.npw;
@@ -432,9 +715,10 @@ __device__ void ccl(L* lbl, const uint32_t* blk, L* tmp, int rounds, const Geo& 
       run_min(t, t, 1, x0, x1, P);
     }
     __syncthreads();
-    // Column-run min: a warp a column.
-    for (int x = warp; x < g.wc; x += nwarps) run_min(tmp + x, lbl + x, lp, y0, y1, P);
-    __syncthreads();
+    // Column-run min: a warp a column (a thread a column of a band).
+    if constexpr (B::split) band.ccl_columns(tmp, lbl, g.wc, lp, P);
+    else for (int x = warp; x < g.wc; x += nwarps) run_min(tmp + x, lbl + x, lp, y0, y1, P);
+    band.sync();
   }
 }
 
@@ -450,19 +734,23 @@ struct Args {
   Params pr;
 };
 
-// L = uint16_t: planes, labels and fit scratch in shared memory; L = int:
-// in device scratch.
-template <class L>
+// Whole, L = uint16_t: planes, labels and fit scratch in shared memory
+// (smem); Whole, L = int: in device scratch (scratch); Band, L = int: a
+// band of a frame's planes and labels in each block's shared memory, on a
+// cluster (cluster; labels mode only).
+template <class L, class B>
 __global__ void __launch_bounds__(1024) coarse_kernel(Args a) {
   extern __shared__ __align__(16) uint32_t dyn[];
-  constexpr bool smem = sizeof(L) == 2;
+  constexpr bool smem = sizeof(L) == 2 || B::split;
+  const B band(a.hc, a.wc, dyn);
   const Params& pr = a.pr;
-  const int b = blockIdx.x;
-  const Geo g = make_geo(a.hc, a.wc, smem);
+  const int b = band.frame();
+  const Geo g = make_geo(a.hc, a.wc, sizeof(L) == 2);
   const int P = g.P;
-  const bool labels_only = a.labels1 != nullptr;
+  const bool labels_only = B::split || a.labels1 != nullptr;
   const int fit_ints = labels_only ? 0 : a3fit::scratch_ints(max(pr.kr1, pr.kr2), g.hc, g.wc);
-  const size_t pw = static_cast<size_t>(g.hc) * g.npw;  // words of a bit plane
+  // Words of a bit plane's storage.
+  const size_t pw = static_cast<size_t>(band.plane_rows(g)) * g.npw;
   int* fs = a.scratch + static_cast<size_t>(b) * a.frame_ints;
   int* LAB2 = labels_only ? a.labels2 + static_cast<size_t>(b) * P : fs;
   if (!labels_only) fs += P;
@@ -470,15 +758,15 @@ __global__ void __launch_bounds__(1024) coarse_kernel(Args a) {
   L* LABA;
   int* fit_base;
   if (smem) {
-    planes = dyn;
-    LABA = reinterpret_cast<L*>(dyn + N_PLANES * pw);
+    planes = dyn + band.shift(g.npw);
+    LABA = reinterpret_cast<L*>(dyn + N_PLANES * pw) + band.shift(g.lp);
     fit_base = reinterpret_cast<int*>(LABA + 2 * g.hc * g.lp);
   } else {
     LABA = reinterpret_cast<L*>(fs);
     fit_base = fs + 2 * P;
     planes = reinterpret_cast<uint32_t*>(fit_base + fit_ints);
   }
-  L* TMPI = LABA + g.hc * g.lp;
+  L* TMPI = LABA + band.plane_rows(g) * g.lp;
   uint32_t* WHITE = planes;
   uint32_t* R = planes + pw;
   uint32_t* TMP = planes + 2 * pw;
@@ -494,23 +782,23 @@ __global__ void __launch_bounds__(1024) coarse_kernel(Args a) {
   const a3fit::Twins none = {nullptr, nullptr, nullptr, 0};
 
   // Outer pass: fill_holes, then the CCL of the filled plane.
-  pack(M2, g, [&](int y, int x) { return C[y * g.wc + x] != 0; });
+  pack(M2, g, band, [&](int y, int x) { return C[y * g.wc + x] != 0; });
   __syncthreads();
-  each_word(g, [&](int q, int y, int j) {
+  each_word(g, band, [&](int q, int y, int j) {
     const uint32_t w = ~M2[q] & wmask(g, j);
     WHITE[q] = w;
     R[q] = w & border_word(g, y, j);
   });
+  band.sync();
+  flood(R, WHITE, TMP, pr.fill_rounds, true, g, band);
+  each_word(g, band, [&](int q, int, int) { F1[q] = M2[q] | (WHITE[q] & ~R[q]); });
   __syncthreads();
-  flood(R, WHITE, TMP, pr.fill_rounds, true, g);
-  each_word(g, [&](int q, int, int) { F1[q] = M2[q] | (WHITE[q] & ~R[q]); });
-  __syncthreads();
-  ccl(LABA, F1, TMPI, pr.ccl_rounds, g);
+  ccl(LABA, F1, TMPI, pr.ccl_rounds, g, band);
   if (labels_only) {
     int* L1 = a.labels1 + static_cast<size_t>(b) * P;
-    each_cell(g, [&](int y, int x) { L1[y * g.wc + x] = LABA[y * g.lp + x]; });
+    each_cell(g, band, [&](int y, int x) { L1[y * g.wc + x] = LABA[y * g.lp + x]; });
     if (pr.k2 <= 0) {
-      each_cell(g, [&](int y, int x) { LAB2[y * g.wc + x] = P; });
+      each_cell(g, band, [&](int y, int x) { LAB2[y * g.wc + x] = P; });
       return;
     }
   } else {
@@ -524,73 +812,79 @@ __global__ void __launch_bounds__(1024) coarse_kernel(Args a) {
   }
 
   // Inner pass (segment.label_planes): background, known outside, depth 0.
-  each_word(g, [&](int q, int y, int j) { BG[q] = M2[q] & border_word(g, y, j); });
-  __syncthreads();
-  flood(BG, M2, TMP, pr.bg_rounds, false, g);
-  each_word(g, [&](int q, int y, int j) {
+  // A dil3 of a plane reads the adjacent bands' edge rows: band.halo first.
+  each_word(g, band, [&](int q, int y, int j) { BG[q] = M2[q] & border_word(g, y, j); });
+  band.sync();
+  flood(BG, M2, TMP, pr.bg_rounds, false, g, band);
+  band.halo(BG, g.npw);
+  each_word(g, band, [&](int q, int y, int j) {
     M2[q] &= ~BG[q];
     KNOWN[q] = WHITE[q] & (border_word(g, y, j) | dil3(BG, g, y, j));
   });
-  __syncthreads();
-  flood(KNOWN, WHITE, TMP, pr.fill_rounds, true, g);
-  each_word(g, [&](int q, int y, int j) { LEV[q] = M2[q] & dil3(KNOWN, g, y, j); });
-  __syncthreads();
-  flood(LEV, M2, TMP, pr.inner_flood_rounds, false, g);
-  pack(OK, g, [&](int y, int x) {
+  band.sync();
+  flood(KNOWN, WHITE, TMP, pr.fill_rounds, true, g, band);
+  band.halo(KNOWN, g.npw);
+  each_word(g, band, [&](int q, int y, int j) { LEV[q] = M2[q] & dil3(KNOWN, g, y, j); });
+  band.sync();
+  flood(LEV, M2, TMP, pr.inner_flood_rounds, false, g, band);
+  pack(OK, g, band, [&](int y, int x) {
     return bit(LEV, g, y, x) && static_cast<int>(LABA[y * g.lp + x]) == y * g.wc + x;
   });
-  __syncthreads();
-  flood(OK, F1, TMP, pr.ccl_rounds, false, g);
-  each_cell(g, [&](int y, int x) {
+  band.sync();
+  flood(OK, F1, TMP, pr.ccl_rounds, false, g, band);
+  each_cell(g, band, [&](int y, int x) {
     const bool ok = bit(OK, g, y, x) && bit(LEV, g, y, x);
     LAB2[y * g.wc + x] = ok ? static_cast<int>(LABA[y * g.lp + x]) : P;
   });
-  each_word(g, [&](int q, int y, int j) {
+  band.halo(LEV, g.npw);
+  each_word(g, band, [&](int q, int y, int j) {
     REM[q] = M2[q] & ~(OK[q] & LEV[q]);
     KNOWN[q] |= dil3(LEV, g, y, j) & WHITE[q];
   });
-  __syncthreads();
-  flood(KNOWN, WHITE, TMP, pr.inner_flood_rounds, true, g);
+  band.sync();
+  flood(KNOWN, WHITE, TMP, pr.inner_flood_rounds, true, g, band);
 
   uint32_t* NOTLEV = OK;
   uint32_t* BLK = BG;
   for (int depth = 1; depth < pr.inner_depths; ++depth) {
     uint32_t any = 0u;
-    each_word(g, [&](int q, int, int) { any |= REM[q]; });
-    if (!__syncthreads_or(any != 0u)) break;  // an exhausted peel changes nothing
-    each_word(g, [&](int q, int y, int j) { LEV[q] = REM[q] & dil3(KNOWN, g, y, j); });
-    __syncthreads();
-    flood(LEV, REM, TMP, pr.inner_flood_rounds, false, g);
-    each_word(g, [&](int q, int, int j) {
+    each_word(g, band, [&](int q, int, int) { any |= REM[q]; });
+    if (!band.any(any != 0u)) break;  // an exhausted peel changes nothing
+    band.halo(KNOWN, g.npw);
+    each_word(g, band, [&](int q, int y, int j) { LEV[q] = REM[q] & dil3(KNOWN, g, y, j); });
+    band.sync();
+    flood(LEV, REM, TMP, pr.inner_flood_rounds, false, g, band);
+    each_word(g, band, [&](int q, int, int j) {
       NOTLEV[q] = ~LEV[q] & wmask(g, j);
       R[q] = KNOWN[q] & ~LEV[q];
     });
+    band.sync();
+    flood(R, NOTLEV, TMP, pr.inner_fill_rounds, true, g, band);
+    each_word(g, band, [&](int q, int, int j) { BLK[q] = ~R[q] & wmask(g, j); });
     __syncthreads();
-    flood(R, NOTLEV, TMP, pr.inner_fill_rounds, true, g);
-    each_word(g, [&](int q, int, int j) { BLK[q] = ~R[q] & wmask(g, j); });
-    __syncthreads();
-    ccl(LABA, BLK, TMPI, pr.inner_ccl_rounds, g);
-    each_cell(g, [&](int y, int x) {
+    ccl(LABA, BLK, TMPI, pr.inner_ccl_rounds, g, band);
+    each_cell(g, band, [&](int y, int x) {
       if (bit(LEV, g, y, x)) LAB2[y * g.wc + x] = LABA[y * g.lp + x];
     });
-    each_word(g, [&](int q, int y, int j) {
+    band.halo(LEV, g.npw);
+    each_word(g, band, [&](int q, int y, int j) {
       REM[q] &= ~LEV[q];
       KNOWN[q] |= dil3(LEV, g, y, j) & WHITE[q];
     });
-    __syncthreads();
-    flood(KNOWN, WHITE, TMP, pr.inner_flood_rounds, true, g);
+    band.sync();
+    flood(KNOWN, WHITE, TMP, pr.inner_flood_rounds, true, g, band);
   }
 
   if (labels_only) return;
   // The inner plane back on chip for its fit (LABA is free now).
-  each_cell(g, [&](int y, int x) { LABA[y * g.lp + x] = static_cast<L>(LAB2[y * g.wc + x]); });
+  each_cell(g, band, [&](int y, int x) { LABA[y * g.lp + x] = static_cast<L>(LAB2[y * g.wc + x]); });
   __syncthreads();
   a3fit::fit_plane(a3fit::Labels<L>{LABA, g.hc, g.wc, g.lp}, pr.k2, pr.kr2,
                    a.fit2.frame(b, pr.k2), fsc, TMPI, pr.fit, none);
-  pack(TMP, g, [&](int y, int x) { return static_cast<int>(LABA[y * g.lp + x]) < P; });
+  pack(TMP, g, band, [&](int y, int x) { return static_cast<int>(LABA[y * g.lp + x]) < P; });
   __syncthreads();
   uint8_t* IC = a.inner_coarse + static_cast<size_t>(b) * P;
-  each_cell(g, [&](int y, int x) {
+  each_cell(g, band, [&](int y, int x) {
     IC[y * g.wc + x] = (dil3(TMP, g, y, x >> 5) >> (x & 31)) & 1u;
   });
 }
@@ -604,17 +898,46 @@ cudaError_t set_smem(K kernel, size_t smem) {
 // The fit scratch of a rank pool of kr (0: labels mode, no fit).
 int fit_scratch(int kr, int hc, int wc) { return kr > 0 ? a3fit::scratch_ints(kr, hc, wc) : 0; }
 
-int launch(Args a, int B, int threads, long long scratch_per_frame, cudaStream_t stream) {
+// Labels mode's B frames on clusters of c blocks of `threads`, in the
+// cluster layout (no scratch).
+int launch_cluster(Args a, int B, int threads, int c, cudaStream_t stream) {
+  const a3fit::Layout l = cluster_layout(a.hc, a.wc, c);
+  if (!l.in_smem || a.labels1 == nullptr || B <= 0 || B > 65535) return cudaErrorInvalidValue;
+  cudaError_t e = set_smem(coarse_kernel<int, Band>, static_cast<size_t>(l.smem));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c, B);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(l.smem);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  a.frame_ints = 0;
+  e = cudaLaunchKernelEx(&cfg, coarse_kernel<int, Band>, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// A frame a block (cluster 0 or 1: smem or scratch, as coarse_layout
+// decides), or on a cluster of `cluster` blocks (2 to 8; labels mode).
+int launch(Args a, int B, int threads, int cluster, long long scratch_per_frame,
+           cudaStream_t stream) {
+  if (threads % 32 != 0 || threads < 64 || threads > 1024) return cudaErrorInvalidValue;
+  if (cluster > 1) return launch_cluster(a, B, threads, cluster, stream);
   const a3fit::Layout l = coarse_layout(a.hc, a.wc, fit_scratch(max(a.pr.kr1, a.pr.kr2), a.hc, a.wc));
-  if (threads % 32 != 0 || threads < 64 || threads > 1024 || scratch_per_frame < l.scratch)
-    return cudaErrorInvalidValue;
+  if (cluster < 0 || scratch_per_frame < l.scratch) return cudaErrorInvalidValue;
   a.frame_ints = static_cast<size_t>(scratch_per_frame);
   if (l.in_smem) {
-    cudaError_t e = set_smem(coarse_kernel<uint16_t>, static_cast<size_t>(l.smem));
+    cudaError_t e = set_smem(coarse_kernel<uint16_t, Whole>, static_cast<size_t>(l.smem));
     if (e != cudaSuccess) return e;
-    coarse_kernel<uint16_t><<<B, threads, l.smem, stream>>>(a);
+    coarse_kernel<uint16_t, Whole><<<B, threads, l.smem, stream>>>(a);
   } else {
-    coarse_kernel<int><<<B, threads, 0, stream>>>(a);
+    coarse_kernel<int, Whole><<<B, threads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -635,6 +958,13 @@ Params round_params(int fill_rounds, int ccl_rounds, int bg_rounds, int inner_de
 // with a rank pool of kr (the larger of the two), in labels mode if kr is 0.
 extern "C" int a3_coarse_layout(int hc, int wc, int kr, long long* out) {
   return a3fit::put_layout(coarse_layout(hc, wc, fit_scratch(kr, hc, wc)), out);
+}
+
+// out[0], out[1]: bytes of shared memory a block (0 where the band does
+// not fit, or a band would be empty) and ints of device scratch a frame
+// (0) that labels mode takes for an hc x wc grid on clusters of c blocks.
+extern "C" int a3_coarse_cluster_layout(int hc, int wc, int c, long long* out) {
+  return a3fit::put_layout(cluster_layout(hc, wc, c), out);
 }
 
 // Fit mode: coarse (B,hc,wc) 0/1 bytes -> both fits and inner_coarse.
@@ -665,18 +995,20 @@ extern "C" int a3_coarse_fit(
   a.scratch = scratch;
   a.hc = hc;
   a.wc = wc;
-  return launch(a, B, threads, scratch_per_frame, stream);
+  return launch(a, B, threads, 1, scratch_per_frame, stream);
 }
 
 // Labels mode: coarse (B,hc,wc) 0/1 bytes -> labels1, labels2 (B,hc,wc)
 // int32 with sentinel hc*wc; labels2 is all sentinel unless `inner`.
-// threads and scratch as for a3_coarse_fit (with a3_coarse_layout's kr 0).
+// cluster: 0 or 1, a frame a block, threads and scratch as for
+// a3_coarse_fit (with a3_coarse_layout's kr 0); 2 to 8, a frame on a
+// cluster of that many blocks (a3_coarse_cluster_layout's, no scratch).
 // Returns cudaGetLastError().
 extern "C" int a3_coarse_labels(const uint8_t* coarse, int* labels1, int* labels2, int* scratch,
                                 int B, int hc, int wc, int inner, int fill_rounds, int ccl_rounds,
                                 int bg_rounds, int inner_depths, int inner_flood_rounds,
                                 int inner_fill_rounds, int inner_ccl_rounds, int threads,
-                                long long scratch_per_frame, cudaStream_t stream) {
+                                int cluster, long long scratch_per_frame, cudaStream_t stream) {
   Args a = {};
   a.pr = round_params(fill_rounds, ccl_rounds, bg_rounds, inner_depths, inner_flood_rounds,
                       inner_fill_rounds, inner_ccl_rounds);
@@ -687,5 +1019,5 @@ extern "C" int a3_coarse_labels(const uint8_t* coarse, int* labels1, int* labels
   a.scratch = scratch;
   a.hc = hc;
   a.wc = wc;
-  return launch(a, B, threads, scratch_per_frame, stream);
+  return launch(a, B, threads, cluster, scratch_per_frame, stream);
 }

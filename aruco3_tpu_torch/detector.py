@@ -63,7 +63,8 @@ either mode, kernel 7 or kernels 5 and 6, the merge),
 ``aruco3.segment.refine`` (the inner footprint and kernel 3; empty where
 nothing is refined) and ``aruco3.segment.finalize``, which split the
 segment stage's nodes again (``substage_kernels``).  A detector's graph
-logs its route (``Detector.route``) and its [outer, inner] lane counts.
+logs its route (``Detector.route``), its [outer, inner] lane counts and
+kernel 2's [layout, blocks a frame] as its wrapper launched it.
 """
 
 from __future__ import annotations

@@ -7,16 +7,20 @@ operations eagerly; it replaces no TPU kernel, the JAX pose being XLA's).
 
 Every kernel wrapper owns a ``Counter``: ``launches`` goes up by one where
 the wrapper launches its kernel and nowhere else, ``plain_calls`` where it
-runs the plain version (CPU tensors).  A captured CUDA graph
-(``runtime.graph``) adds the launches it captured on every replay."""
+runs the plain version (CPU tensors); ``fields`` holds what the wrapper
+chose for its last launch where the capture log should name it (kernel
+2's ``coarse_layout``).  A captured CUDA graph (``runtime.graph``) adds
+the launches it captured on every replay, and the fields of the wrappers
+it captured to its capture log record."""
 
 _ALL: list["Counter"] = []
 
 
 class Counter:
-    """Launches of one kernel and calls of its plain version."""
+    """Launches of one kernel, calls of its plain version and the fields of
+    its last launch."""
 
-    __slots__ = ("launches", "plain_calls")
+    __slots__ = ("launches", "plain_calls", "fields")
 
     def __init__(self):
         self.reset()
@@ -25,6 +29,7 @@ class Counter:
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.fields = {}
 
 
 def counters() -> tuple[Counter, ...]:

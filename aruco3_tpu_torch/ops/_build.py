@@ -49,7 +49,8 @@ SIGNATURES = {
     "a3_frontend": [_PTR] * 5 + [_INT] * 13 + [_PTR],
     "a3_coarse_layout": [_INT] * 3 + [_PTR],
     "a3_coarse_fit": [_PTR] * 15 + [_INT] * 15 + [_FLT, _FLT] + [_INT] * 2 + [_LL, _PTR],
-    "a3_coarse_labels": [_PTR] * 4 + [_INT] * 12 + [_LL, _PTR],
+    "a3_coarse_labels": [_PTR] * 4 + [_INT] * 13 + [_LL, _PTR],
+    "a3_coarse_cluster_layout": [_INT] * 3 + [_PTR],
     "a3_rank_layout": [_INT] * 4 + [_PTR],
     "a3_rank_roots": [_PTR] * 5 + [_LL] + [_INT] * 6 + [_PTR],
     "a3_lanes_layout": [_INT] * 2 + [_PTR],

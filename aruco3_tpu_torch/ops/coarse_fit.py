@@ -13,8 +13,14 @@ version on CPU tensors.  For (B, Hc, Wc) bool coarse masks:
   ``segment.label_planes``) returns ``(labels1, labels2)``, (B, Hc, Wc)
   int32 with sentinel Hc*Wc.
 
-The kernel's source decides where a frame's planes live
-(``a3_coarse_layout``); ``fit.threads_per_block`` sizes its blocks.
+The kernel's source decides where a frame's planes fit
+(``a3_coarse_layout``, ``a3_coarse_cluster_layout``); ``plan`` picks the
+layout of a launch: one block a frame with its planes in shared memory
+("smem"), a cluster of ``CLUSTER`` blocks a frame, each a band of rows on
+chip ("cluster", labels mode only), or one block a frame with its planes
+in device scratch ("scratch").  Each wrapper's ``Counter`` keeps the
+[layout, blocks a frame] of its last launch under ``coarse_layout`` (the
+capture log's record of a graph takes it from there).
 """
 
 from __future__ import annotations
@@ -24,10 +30,20 @@ import torch
 
 from .. import segment
 from . import Counter, _build
-from .fit import MAX_LANES, MAX_POOL, fit_buffers, fit_ptrs, scratch, threads_per_block
+from .fit import (
+    MAX_LANES, MAX_POOL, RANK_CLUSTER_MAX, fit_buffers, fit_ptrs, scratch, threads_per_block,
+)
 
 count = Counter()
 labels_count = Counter()
+
+# Kernel 2's cluster in labels mode: 8 blocks (the portable cluster) of 512
+# threads a frame.  On 16 dense 4K frames (216x384) on one H100 clusters of
+# 8 beat clusters of 4 at every batch from 1 to 128; at 1,024 threads a
+# block fills an SM's registers, the card holds 15 clusters of 8 and 16
+# frames take two waves (0.645 ms against 0.372 at 512; PERF.md).
+CLUSTER = RANK_CLUSTER_MAX
+CLUSTER_THREADS = 512
 
 
 def plain(coarse: torch.Tensor, params: segment.QuadParams, ds: int):
@@ -59,11 +75,27 @@ def quad_mismatches(got: dict, ref: dict) -> int:
     return int((differs & ((da - db).abs() >= 1e-2)).sum())
 
 
-def _plan(b: int, hc: int, wc: int, kr: int, dev) -> tuple[int, int]:
-    """(threads, scratch ints a frame) of kernel 2 for b frames of an hc x
-    wc grid; kr: the larger rank pool in fit mode, 0 in labels mode."""
-    smem, per_frame = _build.layout("a3_coarse_layout", hc, wc, kr)
-    return threads_per_block(b, smem, _build.sm_count(dev.index)), per_frame
+def plan(b: int, hc: int, wc: int, kr: int, sms: int, layout=_build.layout):
+    """(layout, blocks a frame, threads a block, scratch ints a frame) of
+    kernel 2 for b frames of an hc x wc grid on ``sms`` SMs; kr: the
+    larger rank pool in fit mode, 0 in labels mode.  The layout is "smem"
+    where one block holds a frame, else in labels mode "cluster" where a
+    band of a cluster of ``CLUSTER`` fits a block, else "scratch".
+    ``layout(name, *args)`` answers as ``_build.layout`` does for the
+    library's ``a3_coarse_layout`` and ``a3_coarse_cluster_layout``."""
+    smem, per_frame = layout("a3_coarse_layout", hc, wc, kr)
+    if smem:
+        return "smem", 1, threads_per_block(b, smem, sms), per_frame
+    if kr == 0 and layout("a3_coarse_cluster_layout", hc, wc, CLUSTER)[0]:
+        return "cluster", CLUSTER, CLUSTER_THREADS, 0
+    return "scratch", 1, threads_per_block(b, 0, sms), per_frame
+
+
+def fit_pool(params: segment.QuadParams, p: int) -> int:
+    """The larger rank pool of fit mode's two planes on a grid of p cells."""
+    k2 = max(params.max_inner_candidates, 0)
+    kr2 = segment.rank_pool_size(k2, p) if k2 else 0
+    return max(segment.rank_pool_size(params.max_candidates, p), kr2)
 
 
 def _rounds(params: segment.QuadParams):
@@ -100,7 +132,7 @@ def coarse_fit(coarse: torch.Tensor, params: segment.QuadParams, ds: int):
     fit1 = fit_buffers(b, k1, dev)
     fit2 = fit_buffers(b, k2, dev)
     inner = torch.empty((b, hc, wc), dtype=torch.bool, device=dev)
-    threads, per_frame = _plan(b, hc, wc, max(kr1, kr2), dev)
+    layout, blocks, threads, per_frame = plan(b, hc, wc, max(kr1, kr2), _build.sm_count(dev.index))
     work = scratch(b, per_frame, dev)
     err = _build.lib().a3_coarse_fit(
         c,
@@ -119,12 +151,14 @@ def coarse_fit(coarse: torch.Tensor, params: segment.QuadParams, ds: int):
     )
     _build.check(err, "a3_coarse_fit")
     count.launches += 1
+    count.fields["coarse_layout"] = [layout, blocks]
     return fit1, (fit2 if k2 else None), inner
 
 
 def coarse_labels(coarse: torch.Tensor, params: segment.QuadParams):
     """(labels1, labels2) of (B, Hc, Wc) bool coarse masks; CUDA tensors
-    launch the kernel in labels mode, CPU tensors take ``labels_plain``."""
+    launch the kernel in labels mode (in ``plan``'s layout), CPU tensors
+    take ``labels_plain``."""
     if coarse.device.type == "cpu":
         return labels_plain(coarse, params)
     if coarse.ndim != 3:
@@ -134,7 +168,7 @@ def coarse_labels(coarse: torch.Tensor, params: segment.QuadParams):
     dev = coarse.device
     labels1 = torch.empty((b, hc, wc), dtype=torch.int32, device=dev)
     labels2 = torch.empty((b, hc, wc), dtype=torch.int32, device=dev)
-    threads, per_frame = _plan(b, hc, wc, 0, dev)
+    layout, blocks, threads, per_frame = plan(b, hc, wc, 0, _build.sm_count(dev.index))
     work = scratch(b, per_frame, dev)
     err = _build.lib().a3_coarse_labels(
         c,
@@ -145,9 +179,11 @@ def coarse_labels(coarse: torch.Tensor, params: segment.QuadParams):
         int(params.max_inner_candidates > 0),
         *_rounds(params),
         threads,
+        blocks,
         per_frame,
         _build.stream(),
     )
     _build.check(err, "a3_coarse_labels")
     labels_count.launches += 1
+    labels_count.fields["coarse_layout"] = [layout, blocks]
     return labels1, labels2

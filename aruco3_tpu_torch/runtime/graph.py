@@ -165,7 +165,10 @@ class Graph:
     ``substage_kernels`` each stage's nodes split by the spans one level
     below it (``profiling.substages``).  ``route`` and ``lanes``, where the
     caller gives them (a detector's route and its [outer, inner] lane
-    counts), go into the capture log record as they are."""
+    counts), go into the capture log record as they are, and so do the
+    ``fields`` of each kernel wrapper the capture launched (kernel 2's
+    ``coarse_layout``: [layout, blocks a frame] as its wrapper launched
+    it; None where the graph holds no kernel 2)."""
 
     def __init__(self, fn: Callable, shape, dtype: torch.dtype | None, device, pool=None,
                  route: str | None = None, lanes: list | None = None):
@@ -214,18 +217,20 @@ class Graph:
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.stage_kernels = profiling.stages(marks, self.kernel_nodes)
         self.substage_kernels = profiling.substages(marks, self.kernel_nodes)
-        profiling.log_capture({
-            "shape": [[list(s), str(d).removeprefix("torch.")] for s, d in specs],
-            "warmup_ms": self.warmup_ms, "capture_ms": self.capture_ms,
-            "kernel_nodes": self.kernel_nodes, "pool_bytes": self.pool_bytes,
-            "stage_kernels": self.stage_kernels, "substage_kernels": self.substage_kernels,
-            "route": route, "lanes": lanes})
         self.launches = []
+        fields = {"coarse_layout": None}
         for c in ops.counters():
             n = c.launches - before.get(id(c), 0)
             if n:
                 c.launches -= n  # captured, not launched
                 self.launches.append((c, n))
+                fields.update(c.fields)
+        profiling.log_capture({
+            "shape": [[list(s), str(d).removeprefix("torch.")] for s, d in specs],
+            "warmup_ms": self.warmup_ms, "capture_ms": self.capture_ms,
+            "kernel_nodes": self.kernel_nodes, "pool_bytes": self.pool_bytes,
+            "stage_kernels": self.stage_kernels, "substage_kernels": self.substage_kernels,
+            "route": route, "lanes": lanes, **fields})
 
     def fresh(self):
         """Clones of the static outputs on the current stream."""

@@ -45,7 +45,11 @@ Phases, each printing lines of numbers:
    marker corners over the frame's size, invalid lanes as the detector
    leaves them.  Kernels 1, 4, 8 and 9 are held to their plain versions
    bit for bit (max abs error 0.0; for kernel 9 NaN where the plain
-   version has NaN), the others to 1e-3.  Then
+   version has NaN), the others to 1e-3.  Kernel 2's labels mode also at
+   the dense 4K cell's settings (``dense4k``: the dense boards at
+   coarse_factor 10, a 216x384 grid, 16 frames): bit-equal to
+   ``labels_plain``, one launch, on clusters of 8 blocks of 512 threads
+   (its plan and the layout its wrapper launched; another fails).  Then
    kernels 1 (refine mode: the bfloat16 chain's level 1, and level 2 by
    ``rectify.upper_levels``), 4 (samples and cell grids at pyramid levels
    0-3) and 8 on seeded probes, bit for bit against the JAX TPU kernels'
@@ -81,7 +85,9 @@ Phases, each printing lines of numbers:
    kernel against its plain version at its path's phase-3 shapes (CUDA
    events after warm-up, and the kernel's device time alone; kernels 3
    and 4 on each of the three refine paths; the pose kernel also at one
-   frame's lanes), on the portrait coarse
+   frame's lanes; kernel 2's labels mode at the ``dense4k`` stage, whose
+   16 frames are the batch, its row in the JSON line with its plan), on
+   the portrait coarse
    planes at batch 128 the fused kernel 2 against
    labels mode + kernel 7, and on the noref quads at batch 128 kernel 8
    against ``grid_sample`` and the tail route's warp + decode against
@@ -256,6 +262,10 @@ INNER = ":inner"
 EXACT_KERNELS = ("frontend", "warp_decode", "warp_eval", "ippe")
 # Phase-5 batch of each path.
 BATCHES = {"landscape": 128, "portrait": 128, "dense": 16, "noref": 128, "small": 512}
+# Phase 3's dense 4K stage (the benchmark's apriltag36h11_4k_dense cell):
+# the dense boards at coarse_factor 10, a 216x384 grid, 16 frames a batch,
+# where kernel 2's labels mode runs on clusters of 8 blocks of 512 threads.
+DENSE4K_DS, DENSE4K_BATCH, DENSE4K_PLAN = 10, 16, ["cluster", 8, 512]
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # The CUDA kernel each wrapper launches (its name in a profile).
@@ -619,6 +629,52 @@ def compare_kernels(path, args, params, tail=None) -> dict:
         out[name] = (err, *work(kernel_of(name), a, got))
     torch.cuda.synchronize()
     return out
+
+
+def dense4k_inputs(det_dense, boards):
+    """Kernel 2's labels-mode arguments at the dense 4K cell's settings:
+    the dense path's boards (2160x3840, 160 lanes) repeated to
+    ``DENSE4K_BATCH`` frames, through kernel 1 at coarse_factor
+    ``DENSE4K_DS`` (a 216x384 grid) as the detector's route takes it."""
+    from dataclasses import replace
+
+    import torch
+
+    from aruco3_tpu_torch import Detector, detector
+    from aruco3_tpu_torch.ops import frontend
+
+    det = Detector(replace(det_dense.config, coarse_factor=DENSE4K_DS), det_dense.dictionary,
+                   device="cuda")
+    frames = torch.from_numpy(np.concatenate([boards] * (DENSE4K_BATCH // len(boards)))).cuda()
+    params, _, _, ds = det.geometry(*frames.shape[1:])
+    coarse = frontend.threshold_open_pool(frames, det.config.threshold_window, params.open_radius,
+                                          ds, False, not detector.tail_route(params, ds))[0]
+    return coarse, params
+
+
+def dense4k_check(args):
+    """Phase 3's dense 4K stage: kernel 2's labels mode on ``args``
+    (``dense4k_inputs``) against ``labels_plain`` on the same card tensors,
+    bit for bit, in the plan ``DENSE4K_PLAN`` (raises on another, or on a
+    launch other than one, counted at the launch site); returns phase 3's
+    (max abs error, bytes, operations) and the launches."""
+    from aruco3_tpu_torch.ops import _build, coarse_fit
+
+    coarse, params = args
+    b, hc, wc = coarse.shape
+    layout, blocks, threads, _ = coarse_fit.plan(b, hc, wc, 0, _build.sm_count(coarse.device.index))
+    count = coarse_fit.labels_count
+    count.reset()
+    got = coarse_fit.coarse_labels(*args)
+    launches, launched = count.launches, count.fields.get("coarse_layout")
+    counts, err = compare("coarse_labels", args, got, coarse_fit.labels_plain(*args))
+    log("kernel coarse_labels", path="dense4k", batch=b, grid=f"{hc}x{wc}", layout=layout,
+        blocks=blocks, threads=threads, launches=launches, max_abs_err=err, **counts)
+    require([layout, blocks, threads] == DENSE4K_PLAN and launched == DENSE4K_PLAN[:2],
+            f"coarse_labels (dense4k): plan {layout, blocks, threads}, launched {launched}")
+    require(launches == 1, f"coarse_labels (dense4k): {launches} launches")
+    require(sum(counts.values()) == 0, "coarse_labels (dense4k): outputs differ from the plain version")
+    return (err, *work("coarse_labels", args, got)), launches
 
 
 def kernel_records() -> None:
@@ -1018,29 +1074,31 @@ def kernel_timing(name, path, fns, a, checked, batch, launches, card) -> dict:
     alone, the plain version's time and the library call's where there is
     one, beside the bound (``checked``: phase 3's error, bytes and
     operations) and the kernel alone at the phase-5 batch (``batch``).
-    Logs them and returns the kernel's row of the JSON line."""
+    Logs them and returns the kernel's row of the JSON line.  ``batch``
+    None: ``a`` is the phase-5 batch itself (the dense 4K stage)."""
     kernel, plain = fns
     k_ms = cuda_ms(lambda: kernel(*a), reps=10)
     dev_ms = device_ms(lambda: kernel(*a), reps=10, kernel=CUDA_NAMES[name])
     p_ms = cuda_ms(lambda: plain(*a), reps=2)
     err, bytes_, ops = checked
     b_ms, b_by = bound(bytes_, ops)
+    phase5_batch = BATCHES.get(path, int(a[0].shape[0]))
     lib_ms = None
     if name == "warp_eval":
         grid = sample_grid(a[1], a[2])
         lib_ms = cuda_ms(lambda: grid_sample_eval(a[0], grid), reps=10)
-    batch_ms, batch_bound_ms, batch_bound_by = batch
+    batch_ms, batch_bound_ms, batch_bound_by = batch or (dev_ms, b_ms, b_by)
     log(f"timing {name}", path=path, card=repr(card), batch=int(a[0].shape[0]), kernel_ms=round(k_ms, 4),
         device_ms=round(dev_ms, 4), plain_ms=round(p_ms, 4), bound_ms=round(b_ms, 5),
         bound_by=b_by, bytes=bytes_, ops=ops,
         library_ms=lib_ms if lib_ms is None else round(lib_ms, 4),
-        phase5_batch=BATCHES[path], batch_device_ms=round(batch_ms, 4),
+        phase5_batch=phase5_batch, batch_device_ms=round(batch_ms, 4),
         batch_bound_ms=round(batch_bound_ms, 5))
     return {"name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": launches, "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "path": path, "device_ms": dev_ms,
-            "batch": BATCHES[path], "batch_device_ms": batch_ms,
+            "batch": phase5_batch, "batch_device_ms": batch_ms,
             "batch_bound_ms": batch_bound_ms, "batch_bound_by": batch_bound_by}
 
 
@@ -1840,21 +1898,17 @@ def configs_phase(card, totals) -> None:
         torch.cuda.empty_cache()
 
 
-def layouts(route, kernels, params, hc, wc) -> dict:
-    """Where kernel 2 (and kernel 6, where it runs) keeps a frame's state
-    on the case's grid, as the library's layouts say: on chip (shared
-    memory) or not, and the device scratch in ints a frame (a block for
-    kernel 6)."""
-    from aruco3_tpu_torch import segment
-    from aruco3_tpu_torch.ops import _build
+def layouts(route, kernels, params, b, hc, wc) -> dict:
+    """Where kernel 2 (and kernel 6, where it runs) keeps the state of b
+    frames of the case's grid: kernel 2's plan (its layout, "smem",
+    "cluster" or "scratch", blocks a frame and device scratch in ints a
+    frame), kernel 6's on chip (shared memory) or not and its device
+    scratch in ints a block, as the library's layouts say."""
+    from aruco3_tpu_torch.ops import _build, coarse_fit
 
-    p = hc * wc
-    k1, k2 = params.max_candidates, max(params.max_inner_candidates, 0)
-    kr = 0
-    if route == "fused":
-        kr = max(segment.rank_pool_size(k1, p), segment.rank_pool_size(k2, p) if k2 else 0)
-    smem, ints = _build.layout("a3_coarse_layout", hc, wc, kr)
-    out = {"coarse_on_chip": smem > 0, "coarse_scratch_ints": ints}
+    kr = coarse_fit.fit_pool(params, hc * wc) if route == "fused" else 0
+    layout, blocks, _, ints = coarse_fit.plan(b, hc, wc, kr, _build.sm_count(0))
+    out = {"coarse_layout": layout, "coarse_blocks": blocks, "coarse_scratch_ints": ints}
     if "fit_lanes" in kernels:
         smem, ints = _build.layout("a3_lanes_layout", hc, wc)
         out.update(fit_lanes_on_chip=smem > 0, fit_lanes_scratch_ints=ints)
@@ -1893,7 +1947,7 @@ def sweep_case(name, case, records, card, totals) -> None:
         inner_lanes=params.max_inner_candidates, sample_size=det.config.homography_sample_size,
         threshold_window=det.config.threshold_window, ccl_rounds=params.ccl_rounds,
         refine_window=segment.refine_window_size(params, ds) if "refine" in launches else None,
-        **layouts(route, kernels, params, hc, wc),
+        **layouts(route, kernels, params, len(frames), hc, wc),
         **{f"launches_{k}": v for k, v in launches.items()},
         quads=int(out["quad_valid"].sum()), markers=int(out["marker_valid"].sum()),
         lanes_equal=rep.lanes, differences=len(rep.differences), ties=len(rep.ties),
@@ -1972,6 +2026,8 @@ def run(reference, pose_cpu, stream_frames) -> int:
         args, tail = stage_inputs(torch.from_numpy(frames).cuda(), d)
         args_of[path] = args
         phase3[path] = compare_kernels(path, args, d.geometry(*frames.shape[1:])[0], tail)
+    dense4k = dense4k_inputs(det_dense, boards)
+    dense4k_checked, dense4k_launches = dense4k_check(dense4k)
     kernel_records()
 
     # Phase 4: each path with its own counts.
@@ -2056,6 +2112,11 @@ def run(reference, pose_cpu, stream_frames) -> int:
     require(sum(counts.values()) == 0 and err == 0.0, "ippe at one frame's lanes: differs")
     kernel_timing("ippe", "landscape", table["ippe"], one, (err, *work("ippe", one, got)),
                   at_batch["landscape"]["ippe"], launches_of["landscape"]["ippe"], card)
+    # Kernel 2's labels mode at the dense 4K cell's batch, on clusters.
+    row = kernel_timing("coarse_labels", "dense4k", table["coarse_labels"], dense4k,
+                        dense4k_checked, None, dense4k_launches, card)
+    rows.append({**row, "plan": DENSE4K_PLAN})
+    del dense4k
     # Phases 6-12: parity, stream, sharded, spatial, detect_arrays, examples, configs.
     import torch.distributed as dist
 

@@ -18,7 +18,7 @@ from aruco3_tpu import segment as jsegment
 from aruco3_tpu.ops import fit_pallas
 from aruco3_tpu_torch import segment
 from aruco3_tpu_torch.ops import fit
-from torch_twin import assert_quads_tie_equivalent, n
+from torch_twin import assert_quads_tie_equivalent, coarse_layout_model, n
 
 P = segment.QuadParams()
 JP = jsegment.QuadParams()
@@ -130,6 +130,56 @@ def test_rank_cluster(b):
     assert c in (1, 2, 4, 8)
     assert c * b <= 132 or c == 1
     assert c == fit.RANK_CLUSTER_MAX or 2 * c * b > 132
+
+
+# (frames, grid, fit mode, kernel 2's [layout, blocks a frame, threads]):
+# the five benchmark cells (dense 4K at ds 10; 1080p and VGA, batch and
+# live), the portrait 1080p label route, the card tests' off-chip grids,
+# the dense grid at batches from 1 to 256, 1080x1920 (ds 1) in both modes;
+# other off-chip grids: 4K at ds 1, 5, 6 and 8 and 1080p at ds 2, a grid of
+# fewer than 65,536 cells past one block's memory (255x256), one too
+# shallow for bands of 8 (9x7300) and one whose band of 8 does not fit
+# (200x6000); fit mode past one block at 256x330 and at batches of 300
+# and 512 on chip.
+CLUSTER, SCRATCH = ["cluster", 8, 512], ["scratch", 1, 1024]
+COARSE_PLANS = [
+    (16, (216, 384), False, CLUSTER), (128, (108, 192), True, ["smem", 1, 1024]),
+    (64, (120, 160), True, ["smem", 1, 1024]), (1, (120, 160), True, ["smem", 1, 1024]),
+    (1, (108, 192), True, ["smem", 1, 1024]), (2, (192, 108), False, ["smem", 1, 1024]),
+    (2, (256, 330), False, CLUSTER), (2, (217, 385), False, CLUSTER),
+    (15, (216, 384), False, CLUSTER), (30, (216, 384), False, CLUSTER),
+    (128, (216, 384), False, CLUSTER), (16, (216, 384), True, SCRATCH),
+    (1, (1080, 1920), False, SCRATCH), (1, (1080, 1920), True, SCRATCH),
+    (1, (216, 384), False, CLUSTER), (256, (216, 384), False, CLUSTER),
+    (16, (256, 330), False, CLUSTER), (2, (256, 330), True, SCRATCH),
+    (1, (9, 7300), False, SCRATCH), (1, (64, 1100), False, CLUSTER),
+    (1, (200, 6000), False, SCRATCH), (1, (255, 256), False, CLUSTER),
+    (300, (108, 192), True, ["smem", 1, 1024]), (4, (192, 108), False, ["smem", 1, 1024]),
+    (1, (2160, 3840), False, SCRATCH), (512, (120, 160), True, ["smem", 1, 1024]),
+    (1, (540, 960), False, SCRATCH), (1, (432, 768), False, SCRATCH),
+    (16, (270, 480), False, CLUSTER), (16, (360, 640), False, SCRATCH),
+]
+
+
+@pytest.mark.parametrize("b,grid,fit_mode,want", COARSE_PLANS)
+def test_coarse_plan(b, grid, fit_mode, want):
+    """Kernel 2's layout on one H100 (the library's layouts through
+    ``coarse_layout_model``): one block a frame on chip where it fits, a
+    cluster of 8 blocks of 512 threads in labels mode where a band of 8
+    fits, else device scratch."""
+    from aruco3_tpu_torch.ops import coarse_fit as k2
+
+    hc, wc = grid
+    kr = k2.fit_pool(segment.QuadParams(), hc * wc) if fit_mode else 0
+    layout, c, threads, per_frame = k2.plan(b, hc, wc, kr, 132, coarse_layout_model)
+    assert [layout, c, threads] == want
+    if layout == "cluster":
+        smem = coarse_layout_model("a3_coarse_cluster_layout", hc, wc, c)[0]
+        assert 0 < smem <= 232_448 and per_frame == 0
+    else:
+        smem, ints = coarse_layout_model("a3_coarse_layout", hc, wc, kr)
+        assert (smem > 0) == (layout == "smem") and per_frame == ints
+        assert threads == fit.threads_per_block(b, smem, 132)
 
 
 def test_fit_lanes_plain_matches_jax_on_edited_lanes():

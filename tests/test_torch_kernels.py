@@ -21,7 +21,9 @@ from aruco3_tpu_torch.ops import frontend as k1
 from aruco3_tpu_torch.ops import refine as k3
 from aruco3_tpu_torch.ops import warp_decode as k4
 from aruco3_tpu_torch.ops import warp_eval as k8
-from torch_twin import coarse_masks, cuda_device, make_scene, n, noisy_blocks, random_quads
+from torch_twin import (
+    coarse_layout_model, coarse_masks, cuda_device, make_scene, n, noisy_blocks, random_quads,
+)
 
 P = segment.QuadParams()
 S = 49
@@ -150,8 +152,11 @@ def test_frontend_plan_refuses_what_does_not_fit():
 # of 32, the five paths' grids, a serpentine, all-ones and all-zeros
 # planes, blob lattices (more roots than the pool, equal sizes across the
 # top-k boundary), batches of 5 and of 300 (more frames than SMs: smaller
-# blocks), and grids of 65,536 cells or more (device scratch), up to the
-# 1080x1920 grid of a 1080p frame at coarse_factor 1.
+# blocks), and grids of 65,536 cells or more: in labels mode on clusters
+# (256x330; the dense 4K grid 216x384 at batches 1 and 16, its serpentine
+# and blobs, whose runs cross every band edge; 217x385, whose rows do not
+# divide by the cluster), in fit mode in device scratch, and the 1080x1920
+# grid of a 1080p frame at coarse_factor 1 in device scratch in both.
 CARD_CASES = [
     ((40, 54), "random", 0.35, 3), ((40, 54), "random", 0.6, 3),
     ((108, 192), "random", 0.3, 3), ((150, 200), "random", 0.3, 3),
@@ -160,6 +165,8 @@ CARD_CASES = [
     ((108, 192), "serpentine", 0, 2), ((40, 54), "ones", 0, 2), ((40, 54), "zeros", 0, 2),
     ((108, 192), "blobs", 0, 2), ((40, 54), "random", 0.35, 5), ((40, 54), "random", 0.35, 300),
     ((256, 330), "random", 0.3, 2), ((1080, 1920), "random", 0.3, 1),
+    ((216, 384), "random", 0.3, 1), ((216, 384), "random", 0.3, 16),
+    ((216, 384), "serpentine", 0, 2), ((216, 384), "blobs", 0, 2), ((217, 385), "random", 0.3, 2),
 ]
 
 
@@ -443,6 +450,27 @@ def test_coarse_labels_kernel_matches_plain(shape, kind, density, b):
     assert torch.equal(g1, r1) and bool((g2 == shape[0] * shape[1]).all())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [2, 4, 8])
+@pytest.mark.parametrize("shape,kind,b", [((216, 384), "random", 2), ((217, 385), "serpentine", 1),
+                                          ((40, 54), "random", 3), ((37, 33), "blobs", 2)])
+def test_coarse_labels_on_each_cluster_size(shape, kind, b, c, monkeypatch):
+    """Labels mode on clusters of c blocks whatever the plan would pick:
+    bands of 5 to 55 rows, on grids that one block holds too; the dense
+    grids, whose halves do not fit a block, in device scratch on 2."""
+    dev = cuda_device()
+    hc, wc = shape
+    band = _build.layout("a3_coarse_cluster_layout", hc, wc, c)[0]
+    forced = (("cluster", c, 1024, 0) if band
+              else ("scratch", 1, 1024, _build.layout("a3_coarse_layout", hc, wc, 0)[1]))
+    assert bool(band) == (c > 2 or hc < 100)
+    monkeypatch.setattr(k2, "plan", lambda *_: forced)
+    m = coarse_masks(kind, b, shape, 0.3, seed=35).to(dev)
+    r1, r2 = segment.label_planes(m, P)
+    g1, g2 = k2.coarse_labels(m, P)
+    assert torch.equal(g1, r1) and torch.equal(g2, r2)
+
+
 def _assert_fit_equal(got, ref):
     for key in ("valid", "sizes", "qualifying", "roots"):
         assert torch.equal(got[key].cpu(), ref[key].cpu().to(got[key].dtype)), key
@@ -566,7 +594,8 @@ def test_threads_per_block(b, smem, threads):
 def test_kernel_layouts():
     """Kernels 2, 5, 6 and 7 keep the five paths' grids on chip, and a grid
     of 65,536 cells or more (a 1080p frame at coarse_factor 1) in device
-    scratch sized for it (kernel 5: unless a cluster's band fits)."""
+    scratch sized for it (kernels 2 in labels mode and 5: unless a
+    cluster's band fits)."""
     cuda_device()
     kr = segment.rank_pool_size(P.max_candidates, 108 * 192)
     smem, ints = _build.layout("a3_coarse_layout", 108, 192, kr)
@@ -581,6 +610,26 @@ def test_kernel_layouts():
     ):
         smem, ints = _build.layout(name, *args)
         assert smem == 0 and ints > args[0] * args[1]
+    # Kernel 2's cluster layout (labels mode): a band of rows a block on chip
+    # where one block cannot hold the frame (216x384, 217x385, 256x330),
+    # not 1080x1920; the fused cells' grids one block on chip.  The
+    # library's layouts are coarse_layout_model's, which the CPU tests of
+    # the plan use.
+    grids = ((216, 384), (217, 385), (256, 330), (1080, 1920), (108, 192), (120, 160),
+             (192, 108), (40, 54), (37, 33), (13, 70))
+    for hc, wc in grids:
+        for pool in (0, k2.fit_pool(P, hc * wc)):
+            name = "a3_coarse_layout"
+            assert _build.layout(name, hc, wc, pool) == coarse_layout_model(name, hc, wc, pool)
+        for c in (1, 2, 3, 4, 8, 9):
+            name = "a3_coarse_cluster_layout"
+            assert _build.layout(name, hc, wc, c) == coarse_layout_model(name, hc, wc, c)
+    for b, hc, wc in ((16, 216, 384), (2, 217, 385), (2, 256, 330), (128, 216, 384)):
+        assert k2.plan(b, hc, wc, 0, 132)[:3] == ("cluster", 8, 512)
+        assert 0 < _build.layout("a3_coarse_cluster_layout", hc, wc, 8)[0] <= k1.SMEM_MAX
+    assert k2.plan(1, 1080, 1920, 0, 132)[:2] == ("scratch", 1)
+    for b, hc, wc in ((128, 108, 192), (64, 120, 160), (1, 120, 160), (1, 108, 192)):
+        assert k2.plan(b, hc, wc, k2.fit_pool(P, hc * wc), 132)[:2] == ("smem", 1)
     # Kernel 5: header and three pool arrays, then a band's row counts and
     # admission words where they fit (108 / c rows of 6 words, 1080 / c of 60).
     pools = 16 + 3 * 1024

@@ -217,6 +217,28 @@ def test_graph_stage_map_and_spans(route):
     profiling.clear()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,cfg,b,want", [
+    (2160, 3840, DetectorConfig(coarse_factor=10, max_candidates=160), 2, ["cluster", 8]),
+    (1080, 1920, DetectorConfig(coarse_factor=1, refine_corners=False), 1, ["scratch", 1]),
+])
+def test_graph_record_names_kernel_2_layout(h, w, cfg, b, want):
+    """The capture record's ``coarse_layout`` is the layout kernel 2's
+    wrapper launched: a 216x384 grid (the dense 4K cell's) on clusters of 8
+    blocks, a 1080x1920 grid (ds 1) in device scratch."""
+    from aruco3_tpu_torch.utils import profiling
+
+    dev = cuda_device()
+    det = Detector(cfg, ARDictionary.new_from_named_dict("ARUCO_DEFAULT"), device=dev)
+    frames = torch.from_numpy(np.stack([make_scene(k, w, h, w / 320)[0] for k in KINDS[:b]])).to(dev)
+    k2.labels_count.reset()
+    det.detect_batch(frames)  # captures
+    log = profiling.captures()[-1]
+    assert log["route"] in ("labels", "tail") and log["coarse_layout"] == want
+    assert log["coarse_layout"] == k2.labels_count.fields["coarse_layout"]
+    assert k2.labels_count.launches == 2  # the warm-up's and the first replay's
+
+
 ROUTE_OF = {"fused": "fused", "labels": "labels", "labels_k5_k6": "labels",
             "tail_noref": "tail", "tail_gather": "tail", "tail_ds1": "tail"}
 SEGMENT_PARTS = ["aruco3.segment.fit", "aruco3.segment.refine", "aruco3.segment.finalize"]
@@ -228,7 +250,8 @@ def test_graph_substages_route_and_lanes(route):
     """A capture's log record splits each stage's kernel nodes by the spans
     one level below it (the segment stage by its fit, refinement and
     finalize, the other stages not at all), each split adding up to its
-    stage's nodes, and names the route and the [outer, inner] lanes."""
+    stage's nodes, and names the route, the [outer, inner] lanes and
+    kernel 2's layout."""
     from aruco3_tpu_torch.utils import profiling
 
     dev = cuda_device()
@@ -240,6 +263,7 @@ def test_graph_substages_route_and_lanes(route):
     log = profiling.captures()[-1]
     assert log["route"] == det.route(*frames.shape[1:3]) == ROUTE_OF[route]
     assert log["lanes"] == [cfg.max_candidates, cfg.max_inner_candidates]
+    assert log["coarse_layout"] == ["smem", 1]  # kernel 2, one block a frame on chip
     subs = log["substage_kernels"]
     assert subs == g.substage_kernels and len(subs) == len(g.stage_kernels)
     for (stage, n), parts in zip(g.stage_kernels, subs):

@@ -101,6 +101,30 @@ def coarse_masks(kind, b, shape, density=0.35, seed=14):
     return torch.from_numpy(np.ascontiguousarray(c))
 
 
+def coarse_layout_model(name, hc, wc, arg):
+    """Kernel 2's layouts as the library gives them, for tests of
+    ``ops.coarse_fit.plan`` on the CPU: ``a3_coarse_layout`` (arg: the rank
+    pool, 0 in labels mode) and ``a3_coarse_cluster_layout`` (arg: the
+    cluster's blocks).  ``test_kernel_layouts`` holds it to the library on
+    the card."""
+    smem_max, planes, nw = 232_448, 10, -(-wc // 32)
+    npw, p = nw | 1, hc * wc
+    if name == "a3_coarse_cluster_layout":
+        if not 2 <= arg <= 8 or (arg - 1) * -(-hc // arg) >= hc:
+            return 0, 0
+        rows = -(-hc // arg)
+        band = 4 * ((rows + 2) * (planes * npw + 2 * wc) + 3 * wc + 8)
+        return (band, 0) if band <= smem_max else (0, 0)
+    assert name == "a3_coarse_layout", name
+    k_max = 128
+    fit = 3 * arg + hc + 1 + hc * nw + 3 * k_max + 1 + 64 + 2 * k_max + 32 if arg else 0
+    lab2 = p if arg else 0
+    smem = planes * hc * npw * 4 + 2 * hc * 2 * ((-(-wc // 2)) | 1) * 2 + 4 * fit
+    if p < 65536 and smem <= smem_max:
+        return smem, lab2
+    return 0, lab2 + 2 * p + fit + planes * hc * npw
+
+
 def noisy_blocks(rng, batch, h, w):
     """Grey frames with dark rectangles of several sizes plus noise: enough
     structure for every mask and label stage to be non-trivial."""

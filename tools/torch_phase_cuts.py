@@ -82,7 +82,7 @@ CUTS = {
     "current": dict(
         k2=[
             ("outer fill", "coarse_fit.cu",
-             "  each_word(g, [&](int q, int, int) { F1[q] = M2[q] | (WHITE[q] & ~R[q]); });"),
+             "  each_word(g, band, [&](int q, int, int) { F1[q] = M2[q] | (WHITE[q] & ~R[q]); });"),
             ("+outer CCL", "coarse_fit.cu", "  if (labels_only) {\n    int* L1"),
             ("+outer fit", "coarse_fit.cu", "  // Inner pass (segment.label_planes)"),
             ("+inner depth 0", "coarse_fit.cu", "  uint32_t* NOTLEV = OK;"),
