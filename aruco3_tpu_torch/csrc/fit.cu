@@ -359,7 +359,7 @@ template <bool SMEM>
 __global__ void __launch_bounds__(1024)
 fused_fit_kernel(const int* __restrict__ labels1, const int* __restrict__ labels2,
                  FitPtrs fit1, FitPtrs fit2, int* scratch, int hc, int wc, int k1, int k2,
-                 int kr1, int kr2, FitParams pr, int dup_skip) {
+                 int kr1, int kr2, FitParams pr) {
   using Idx = typename std::conditional<SMEM, uint16_t, int>::type;
   extern __shared__ __align__(16) int dyn[];
   const int b = blockIdx.x;
@@ -381,9 +381,9 @@ fused_fit_kernel(const int* __restrict__ labels1, const int* __restrict__ labels
     const int k = plane ? k2 : k1;
     const int kp = plane ? kr2 : kr1;
     const a3fit::FitOut o = plane ? fit2.frame(b, k2) : o1;
-    // The outer lanes are this block's own writes, visible after the
-    // barrier that ends the first fit_plane.
-    const a3fit::Twins& tw = plane && dup_skip ? twins : none;
+    // The inner plane skips the twins of valid outer lanes: this block's
+    // own writes, visible after the barrier that ends the first fit_plane.
+    const a3fit::Twins& tw = plane ? twins : none;
     if (SMEM) {
       stage(lab, staged, P);
       a3fit::fit_plane(a3fit::Labels<uint16_t>{staged, hc, wc, wc}, k, kp, o, s, members, pr, tw);
@@ -484,7 +484,7 @@ extern "C" int a3_fused_fit(const int* labels1, const int* labels2, float* quads
                             float* quads2, uint8_t* valid2, int* roots2, float* cents2,
                             int* sizes2, int* qual2, int* scratch, int B, int hc, int wc, int ds,
                             int k1, int k2, int kr1, int kr2, float slack,
-                            float min_containment, int min_px, int dup_skip, int threads,
+                            float min_containment, int min_px, int threads,
                             long long scratch_ints, cudaStream_t stream) {
   const a3fit::Layout l = fused_layout(hc, wc, max(kr1, kr2));
   if (k1 <= 0 || k1 > a3fit::K_MAX || k2 > a3fit::K_MAX || kr1 > a3fit::KR_MAX ||
@@ -502,10 +502,10 @@ extern "C" int a3_fused_fit(const int* labels1, const int* labels2, float* quads
     cudaError_t e = static_cast<cudaError_t>(launch_smem(fused_fit_kernel<true>, l.smem));
     if (e != cudaSuccess) return e;
     fused_fit_kernel<true><<<B, threads, l.smem, stream>>>(
-        labels1, labels2, fit1, fit2, scratch, hc, wc, k1, k2, kr1, kr2, pr, dup_skip);
+        labels1, labels2, fit1, fit2, scratch, hc, wc, k1, k2, kr1, kr2, pr);
   } else {
     fused_fit_kernel<false><<<B, threads, 0, stream>>>(
-        labels1, labels2, fit1, fit2, scratch, hc, wc, k1, k2, kr1, kr2, pr, dup_skip);
+        labels1, labels2, fit1, fit2, scratch, hc, wc, k1, k2, kr1, kr2, pr);
   }
   return cudaGetLastError();
 }

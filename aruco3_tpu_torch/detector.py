@@ -245,9 +245,11 @@ class Detector:
 
         def describe():
             params = geometry[0]
-            return self.route(h, w), [params.max_candidates, params.max_inner_candidates]
+            return {"route": self.route(h, w),
+                    "lanes": [params.max_candidates, params.max_inner_candidates]}
 
-        return self.graphs.get(shape, lambda: pipeline, shape, torch.uint8, self.device, describe)
+        return self.graphs.get(shape, lambda: pipeline, [(shape, torch.uint8)], self.device,
+                               describe)
 
     def geometry(self, height: int, width: int):
         """(params, min_edge, min_sep, ds) for an (height, width) frame."""
@@ -384,7 +386,7 @@ def fit_candidates(coarse, params, ds, fused):
         fit1, fit2, inner_coarse = coarse_fit(coarse, params, ds)
         return segment.merge_fits(fit1, fit2, params, ds), inner_coarse, None
     labels1, labels2 = coarse_labels(coarse, params)
-    fit1, fit2 = fused_fit_batch(labels1, labels2, ds, params, k1, k2, dup_skip=True)
+    fit1, fit2 = fused_fit_batch(labels1, labels2, ds, params, k1, k2)
     return segment.merge_fits(fit1, fit2, params, ds), None, labels2
 
 

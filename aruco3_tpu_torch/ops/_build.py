@@ -56,7 +56,7 @@ SIGNATURES = {
     "a3_lanes_layout": [_INT] * 2 + [_PTR],
     "a3_fit_lanes": [_PTR] * 8 + [_LL] + [_INT] * 6 + [_FLT, _PTR],
     "a3_fused_layout": [_INT] * 3 + [_PTR],
-    "a3_fused_fit": [_PTR] * 15 + [_INT] * 8 + [_FLT, _FLT] + [_INT] * 3 + [_LL, _PTR],
+    "a3_fused_fit": [_PTR] * 15 + [_INT] * 8 + [_FLT, _FLT] + [_INT] * 2 + [_LL, _PTR],
     "a3_refine": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     "a3_warp_decode": [_PTR] * 3 + [_INT] + [_PTR] * 9 + [_INT] * 7 + [_PTR],
     "a3_warp_eval": [_PTR] * 4 + [_INT] * 3 + [_PTR],

@@ -193,18 +193,15 @@ def fit_quads_batch(labels: torch.Tensor, ds: int, params: segment.QuadParams, k
     return segment.lane_fits(quads, cents, frac, roots, sizes, n_roots, params)
 
 
-def fused_fit_plain(labels1, labels2, ds, params, k1, k2, dup_skip=False):
-    """``segment.fit_quads`` of both planes; with ``dup_skip`` the inner
-    lanes that twin a valid outer lane are not fitted (zero quads,
-    centroids and containment)."""
+def fused_fit_plain(labels1, labels2, ds, params, k1, k2):
+    """``segment.fit_quads`` of both planes; the inner lanes that twin a
+    valid outer lane are not fitted (zero quads, centroids and
+    containment)."""
     fused_count.plain_calls += 1
     fit1 = segment.fit_quads(labels1, ds, params, k=k1)
     if k2 <= 0:
         return fit1, None
-    fit2 = segment.fit_quads(
-        labels2, ds, params, k=k2, skip_twins_of=fit1 if dup_skip else None
-    )
-    return fit1, fit2
+    return fit1, segment.fit_quads(labels2, ds, params, k=k2, skip_twins_of=fit1)
 
 
 def fused_fit_batch(
@@ -214,7 +211,6 @@ def fused_fit_batch(
     params: segment.QuadParams,
     k1: int,
     k2: int,
-    dup_skip: bool = False,
 ):
     """(fit1, fit2) of the outer and inner label planes (fit2 None when k2
     is 0).  Lane counts above 128 take ``fit_quads_batch`` on each plane,
@@ -226,7 +222,7 @@ def fused_fit_batch(
         fit2 = fit_quads_batch(labels2, ds, params, k2) if k2 > 0 else None
         return fit1, fit2
     if labels1.device.type == "cpu":
-        return fused_fit_plain(labels1, labels2, ds, params, k1, k2, dup_skip)
+        return fused_fit_plain(labels1, labels2, ds, params, k1, k2)
     b, hc, wc = labels1.shape
     p = hc * wc
     lab1 = _labels_ptr(labels1, "labels1")
@@ -246,7 +242,6 @@ def fused_fit_batch(
         _slack(params.containment_slack, ds),
         float(np.float32(params.min_containment)),
         params.min_component_px,
-        int(bool(dup_skip) and k2 > 0),
         threads_per_block(b, smem, _build.sm_count(dev.index)),
         per_frame,
         _build.stream(),

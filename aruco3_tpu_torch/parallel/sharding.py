@@ -116,7 +116,7 @@ def build_sharded_detect(
         if eager is not None:
             return eager(frames.to(device))
         key = ("sharded", tuple(frames.shape), with_pose, marker_size_mm, str(device))
-        return detector.graphs.get(key, make, frames.shape, frames.dtype, device)(frames)
+        return detector.graphs.get(key, make, [(frames.shape, frames.dtype)], device)(frames)
 
     return step
 

@@ -180,10 +180,10 @@ def build_spatial_detect(detector: Detector, height: int, width: int, group=None
                     ((1, height // ds, -(-width // ds)), torch.bool))
 
         def run_band(grey_ext):
-            return cache.get(band_key, make_band, grey_ext.shape, torch.uint8, device)(grey_ext)
+            return cache.get(band_key, make_band, [(grey_ext.shape, torch.uint8)], device)(grey_ext)
 
         def run_masks(grey, black, coarse):
-            return cache.get(masks_key, make_masks, masks_in, None, device)(grey, black, coarse)
+            return cache.get(masks_key, make_masks, masks_in, device)(grey, black, coarse)
     else:
         run_band, run_masks = make_band(), make_masks()
 

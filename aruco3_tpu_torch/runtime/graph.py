@@ -16,8 +16,8 @@ stream, so each call returns fresh tensors, as a JAX call does:
   reading the static inputs;
 * replay N+1 overwrites the static outputs only after call N's clones.
 
-A capture that fails raises, naming the operation it stopped at; there is
-no eager fallback.  While it captures, each ``utils.profiling.span`` the
+A capture that fails raises, naming the graph's input specs; there is no
+eager fallback.  While it captures, each ``utils.profiling.span`` the
 function opens marks the capture graph's kernel nodes so far (libcuda
 ``cuStreamGetCaptureInfo``), which gives the graph's stage map
 (``stage_kernels``), and the spans one level below each stage split its
@@ -42,49 +42,19 @@ from collections import OrderedDict
 from typing import Callable
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import ops
 from ..utils import profiling
 
-# cuGraphNodeGetType's CU_GRAPH_NODE_TYPE_KERNEL; cuStreamIsCapturing's
+# cuGraphNodeGetType's CU_GRAPH_NODE_TYPE_KERNEL; cuStreamGetCaptureInfo's
 # CU_STREAM_CAPTURE_STATUS_ACTIVE.
 _KERNEL_NODE = 0
 _CAPTURE_ACTIVE = 1
 
 
-class _CaptureWatch(TorchDispatchMode):
-    """Names the aten operation a failed capture stopped at: the first one
-    after which the stream is no longer capturing (an operation the
-    capture refused invalidates it without raising), else the last one
-    dispatched."""
-
-    def __init__(self):
-        super().__init__()
-        self.last = "none"
-        self.culprit = None
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.last = str(func)
-        out = func(*args, **(kwargs or {}))
-        if self.culprit is None and _capture_status() != _CAPTURE_ACTIVE:
-            self.culprit = self.last
-        return out
-
-
 @functools.lru_cache(maxsize=1)
 def _libcuda() -> ctypes.CDLL:
     return ctypes.CDLL("libcuda.so.1")
-
-
-def _capture_status() -> int:
-    """The current stream's capture status (libcuda ``cuStreamIsCapturing``:
-    0 none, 1 active, 2 invalidated)."""
-    status = ctypes.c_int(0)
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    if _libcuda().cuStreamIsCapturing(stream, ctypes.byref(status)) != 0:
-        raise RuntimeError("cuStreamIsCapturing failed")
-    return status.value
 
 
 def _clone(tree):
@@ -142,19 +112,22 @@ def _kernel_nodes_of(handle: ctypes.c_void_p) -> int:
     return n
 
 
-def input_specs(shape, dtype) -> list:
-    """[(shape, dtype)] of a graph's inputs: the one input (``shape``,
-    ``dtype``), or, where ``dtype`` is None, the (shape, dtype) pairs that
-    ``shape`` holds."""
-    if dtype is not None:
-        return [(tuple(shape), dtype)]
-    return [(tuple(s), d) for s, d in shape]
+def _pairs(specs) -> list:
+    """[(shape, dtype)] of ``specs``, a non-empty sequence of (shape,
+    dtype) pairs; ValueError for anything else."""
+    try:
+        pairs = [(tuple(int(n) for n in s), d) for s, d in specs]
+    except (TypeError, ValueError):
+        pairs = []
+    if not pairs or not all(isinstance(d, torch.dtype) for _, d in pairs):
+        raise ValueError(f"input specs are a non-empty sequence of (shape, dtype) pairs, "
+                         f"not {specs!r}")
+    return pairs
 
 
 class Graph:
-    """``fn`` captured for inputs of ``shape`` and ``dtype`` on the CUDA
-    device ``device``; for a function of several tensors, ``shape`` is a
-    tuple of (shape, dtype) pairs and ``dtype`` None (``input_specs``).
+    """``fn`` captured for inputs of ``specs``, a sequence of (shape, dtype)
+    pairs, one for each argument of ``fn``, on the CUDA device ``device``.
 
     ``warmup_ms`` is the host time of the warm-up, ``capture_ms`` that of
     the capture and instantiation, ``pool_bytes`` what the memory pool grew
@@ -163,20 +136,16 @@ class Graph:
     opened at its outermost level ([(stage, kernel nodes)], "other" for
     nodes outside them; the counts sum to ``kernel_nodes``),
     ``substage_kernels`` each stage's nodes split by the spans one level
-    below it (``profiling.substages``).  ``route`` and ``lanes``, where the
-    caller gives them (a detector's route and its [outer, inner] lane
-    counts), go into the capture log record as they are, and so do the
-    ``fields`` of each kernel wrapper the capture launched (kernel 2's
-    ``coarse_layout``: [layout, blocks a frame] as its wrapper launched
-    it; None where the graph holds no kernel 2)."""
+    below it (``profiling.substages``).  The capture log record holds
+    these, then the caller's ``record`` as it is, then the ``fields`` of
+    each kernel wrapper the capture launched."""
 
-    def __init__(self, fn: Callable, shape, dtype: torch.dtype | None, device, pool=None,
-                 route: str | None = None, lanes: list | None = None):
+    def __init__(self, fn: Callable, specs, device, pool=None, record: dict | None = None):
+        specs = _pairs(specs)
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph runs on a CUDA device, not {dev}")
         self.fn = fn
-        specs = input_specs(shape, dtype)
         with torch.cuda.device(dev):
             self.inputs = [torch.zeros(s, dtype=d, device=dev) for s, d in specs]
             t0 = time.perf_counter()
@@ -192,7 +161,6 @@ class Graph:
             torch.cuda.empty_cache()  # as the capture does first
             reserved = torch.cuda.memory_reserved(dev)
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-            watch = _CaptureWatch()
             t0 = time.perf_counter()
             # No collection during the capture: a graph that the cyclic
             # collector destroyed now (cudaGraphExecDestroy) would
@@ -201,13 +169,10 @@ class Graph:
             gc.disable()
             try:
                 with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-                    with watch, profiling.stage_map(capturing_kernel_nodes) as marks:
+                    with profiling.stage_map(capturing_kernel_nodes) as marks:
                         self.outputs = fn(*self.inputs)
             except Exception as e:
-                raise RuntimeError(
-                    f"CUDA graph capture on inputs {specs} failed at "
-                    f"{watch.culprit or watch.last}: {e}"
-                ) from e
+                raise RuntimeError(f"CUDA graph capture on inputs {specs} failed: {e}") from e
             finally:
                 if collecting:
                     gc.enable()
@@ -218,7 +183,7 @@ class Graph:
         self.stage_kernels = profiling.stages(marks, self.kernel_nodes)
         self.substage_kernels = profiling.substages(marks, self.kernel_nodes)
         self.launches = []
-        fields = {"coarse_layout": None}
+        fields = {}
         for c in ops.counters():
             n = c.launches - before.get(id(c), 0)
             if n:
@@ -230,7 +195,7 @@ class Graph:
             "warmup_ms": self.warmup_ms, "capture_ms": self.capture_ms,
             "kernel_nodes": self.kernel_nodes, "pool_bytes": self.pool_bytes,
             "stage_kernels": self.stage_kernels, "substage_kernels": self.substage_kernels,
-            "route": route, "lanes": lanes, **fields})
+            **(record or {}), **fields})
 
     def fresh(self):
         """Clones of the static outputs on the current stream."""
@@ -261,26 +226,33 @@ class Graph:
 
 class GraphCache:
     """At most ``maxsize`` ``Graph``s by key, least recently used out first,
-    all in one memory pool."""
+    all in one memory pool (a new one after a failed capture)."""
 
     def __init__(self, maxsize: int = 32):
         self.maxsize = maxsize
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: OrderedDict = OrderedDict()
 
-    def get(self, key, make: Callable[[], Callable], shape, dtype, device,
-            describe: Callable[[], tuple] | None = None) -> Graph:
+    def get(self, key, make: Callable[[], Callable], specs, device,
+            describe: Callable[[], dict] | None = None) -> Graph:
         """The graph of ``key``; where the cache does not hold it, the
-        function ``make()`` returns, captured for (``shape``, ``dtype``,
-        ``device``; several inputs as ``Graph`` takes them), with
-        ``describe()``'s (route, lanes) in its capture log record.  ``make``
-        and ``describe`` run once per capture, so the device constants
-        ``make`` builds are built once per graph and a hit costs neither."""
+        function ``make()`` returns, captured for ``specs`` on ``device`` (as
+        ``Graph`` takes them), with ``describe()``'s dict in its capture log
+        record.  ``make`` and ``describe`` run once per capture, so the
+        device constants ``make`` builds are built once per graph and a hit
+        costs neither."""
         g = self.graphs.get(key)
         if g is None:
-            route, lanes = describe() if describe is not None else (None, None)
+            record = describe() if describe is not None else None
             with profiling.span("aruco3.graph.capture"):
-                g = self.graphs[key] = Graph(make(), shape, dtype, device, self.pool, route, lanes)
+                try:
+                    g = self.graphs[key] = Graph(make(), specs, device, self.pool, record)
+                except RuntimeError:
+                    # torch's allocator keeps the pool of a failed capture
+                    # marked as recording and refuses every later capture
+                    # into it.
+                    self.pool = torch.cuda.graph_pool_handle()
+                    raise
             while len(self.graphs) > self.maxsize:
                 self.graphs.popitem(last=False)
         else:

@@ -457,8 +457,8 @@ def stage_inputs(frames, det):
                     (sizes >= 0).contiguous(), ds, params.containment_slack,
                 )
         else:
-            args["fused_fit"] = (l1, l2, ds, params, k1, k2, True)
-        fit1, fit2 = fit.fused_fit_batch(l1, l2, ds, params, k1, k2, dup_skip=True)
+            args["fused_fit"] = (l1, l2, ds, params, k1, k2)
+        fit1, fit2 = fit.fused_fit_batch(l1, l2, ds, params, k1, k2)
         ic = segment.inner_footprint(l2) if k2 > 0 else torch.zeros_like(coarse)
     cand = segment.merge_fits(fit1, fit2, params, ds)
     s = det.config.homography_sample_size
@@ -786,7 +786,7 @@ def pose_graph(det, shape):
 
     shape = tuple(shape)
     return det.graphs.get(("detect_and_pose",) + shape, lambda: pose_step(det, *shape[1:3]),
-                          shape, torch.uint8, det.device)
+                          [(shape, torch.uint8)], det.device)
 
 
 def tensors(tree):
@@ -1058,10 +1058,10 @@ def route_timing(det, frames, card) -> None:
     fused_ms = cuda_ms(lambda: coarse_fit.coarse_fit(coarse, params, ds), reps=10)
     labels = coarse_fit.coarse_labels(coarse, params)
     labels_ms = cuda_ms(lambda: coarse_fit.coarse_labels(coarse, params), reps=10)
-    fit_ms = cuda_ms(lambda: fit.fused_fit_batch(*labels, ds, params, k1, k2, dup_skip=True),
+    fit_ms = cuda_ms(lambda: fit.fused_fit_batch(*labels, ds, params, k1, k2),
                      reps=10)
     route_ms = cuda_ms(lambda: fit.fused_fit_batch(*coarse_fit.coarse_labels(coarse, params),
-                                                   ds, params, k1, k2, dup_skip=True), reps=10)
+                                                   ds, params, k1, k2), reps=10)
     log("timing route", path="portrait", card=repr(card), batch=coarse.shape[0],
         grid=f"{coarse.shape[1]}x{coarse.shape[2]}", fused_kernel2_ms=round(fused_ms, 4),
         coarse_labels_ms=round(labels_ms, 4), fused_fit_ms=round(fit_ms, 4),
@@ -1502,7 +1502,7 @@ def masks_stage_inputs(grey, black, coarse, det):
     params, min_edge, min_sep, ds = sharding.parallel_geometry(det.config, *grey.shape[1:])
     k1, k2 = params.max_candidates, params.max_inner_candidates
     l1, l2 = coarse_fit.coarse_labels(coarse, params)
-    fit1, fit2 = fit.fused_fit_batch(l1, l2, ds, params, k1, k2, dup_skip=True)
+    fit1, fit2 = fit.fused_fit_batch(l1, l2, ds, params, k1, k2)
     cand = segment.merge_fits(fit1, fit2, params, ds)
     ic = segment.inner_footprint(l2) if k2 > 0 else torch.zeros_like(coarse)
     args = {"refine": (grey, segment.near_mask(black), cand["quads"].contiguous(),

@@ -77,29 +77,30 @@ def test_split_fit_plain_matches_jax(shape, density, k):
 
 
 @pytest.mark.parametrize(
-    "shape,density,k1,k2,dup_skip",
+    "shape,density,k1,k2",
     [
-        ((40, 54), 0.35, 32, 12, True),
-        ((40, 54), 0.6, 32, 12, False),  # dense: many equal sizes
-        ((80, 54), 0.45, 32, 0, False),  # outer plane only
-        ((40, 300), 0.35, 16, 8, True),  # wide plane
-        ((40, 54), 0.35, 160, 12, True),  # above 128 lanes: kernels 5 and 6
+        ((40, 54), 0.35, 32, 12),
+        ((40, 54), 0.6, 32, 12),  # dense: many equal sizes
+        ((80, 54), 0.45, 32, 0),  # outer plane only
+        ((40, 300), 0.35, 16, 8),  # wide plane
+        ((40, 54), 0.35, 160, 12),  # above 128 lanes: kernels 5 and 6
     ],
 )
-def test_fused_fit_plain_matches_jax(shape, density, k1, k2, dup_skip):
+def test_fused_fit_plain_matches_jax(shape, density, k1, k2):
     """Kernel 7's plain version (or the split route above 128 lanes)
-    against fused_fit_batch, twin skip included."""
+    against fused_fit_batch with its twin skip, the JAX detector's
+    setting."""
     l1, l2 = planes(shape, density)
-    got = fit.fused_fit_batch(l1, l2, DS, P, k1, k2, dup_skip=dup_skip)
+    got = fit.fused_fit_batch(l1, l2, DS, P, k1, k2)
     ref = fit_pallas.fused_fit_batch(
         jnp.asarray(n(l1)), jnp.asarray(n(l2)) if k2 else None, DS, JP, k1, k2,
-        dup_skip=dup_skip, interpret=True,
+        dup_skip=True, interpret=True,
     )
     assert (got[1] is None) == (ref[1] is None) == (k2 == 0)
     assert_fit_matches(got[0], ref[0])
     if k2:
         assert_fit_matches(got[1], ref[1])
-    if dup_skip and max(k1, k2) <= fit.MAX_LANES:
+    if k2 and max(k1, k2) <= fit.MAX_LANES:
         # Twin lanes were selected but not fitted: zero centroids.
         skipped = (got[1]["sizes"] > 0) & (got[1]["centroids"] == 0).all(-1)
         assert bool(skipped.any())

@@ -182,7 +182,7 @@ def test_cpu_detector_runs_eagerly():
         assert torch.equal(got[key], ref[key]), key
     assert det._graphs is None
     with pytest.raises(ValueError, match="CUDA device"):
-        graph.Graph(lambda x: x, (2, 4), torch.uint8, "cpu")
+        graph.Graph(lambda x: x, [((2, 4), torch.uint8)], "cpu")
 
 
 def test_graph_outputs_are_cloned_and_counters_registered():
@@ -197,8 +197,11 @@ def test_graph_outputs_are_cloned_and_counters_registered():
     assert wrapper_counters <= set(ops.counters())
 
 
-def test_graph_input_specs():
-    """One input as (shape, dtype), several as a tuple of such pairs."""
-    assert graph.input_specs(torch.Size([2, 3]), torch.uint8) == [((2, 3), torch.uint8)]
-    pairs = (((1, 4, 4), torch.uint8), ([1, 2, 2], torch.bool))
-    assert graph.input_specs(pairs, None) == [((1, 4, 4), torch.uint8), ((1, 2, 2), torch.bool)]
+def test_graph_refuses_specs_that_are_not_pairs():
+    """``Graph`` takes its inputs as a non-empty sequence of (shape, dtype)
+    pairs and refuses anything else before it touches a device."""
+    for specs in ((2, 4), ((2, 4), torch.uint8), [], [((2, 4), "uint8")], [(2, torch.uint8)]):
+        with pytest.raises(ValueError, match="input specs"):
+            graph.Graph(lambda x: x, specs, "cuda")
+    pairs = ((torch.Size([1, 4, 4]), torch.uint8), ([1, 2, 2], torch.bool))
+    assert graph._pairs(pairs) == [((1, 4, 4), torch.uint8), ((1, 2, 2), torch.bool)]

@@ -197,7 +197,8 @@ def test_pose_call_launches_one_kernel():
         if len(names) >= 10:
             break
     assert len(names) == 10 and all("ippe_kernel" in name for name in names), names
-    g = graph.Graph(lambda x: pose.solve_normalized_batch(x, 40.0), (44, 4, 2), torch.float32, dev)
+    specs = [((44, 4, 2), torch.float32)]
+    g = graph.Graph(lambda x: pose.solve_normalized_batch(x, 40.0), specs, dev)
     assert g.kernel_nodes == 1
     _assert_same(g(pts), pose.solve_normalized_batch(pts, 40.0))
 

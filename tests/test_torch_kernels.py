@@ -554,21 +554,21 @@ def test_rank_kernel_on_each_cluster_size(shape, b, k, c, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,kind,b,k1,k2,dup_skip", [
-    ((40, 54), "random", 2, 32, 12, True), ((192, 108), "random", 2, 32, 12, True),
-    ((192, 108), "random", 2, 32, 12, False), ((108, 192), "random", 2, 32, 0, False),
-    ((120, 160), "random", 3, 32, 12, True), ((60, 203), "random", 2, 32, 12, True),
-    ((37, 33), "random", 3, 32, 12, True), ((108, 192), "serpentine", 2, 32, 12, True),
-    ((40, 54), "ones", 2, 32, 12, True), ((40, 54), "zeros", 2, 32, 12, True),
-    ((108, 192), "blobs", 2, 32, 12, True), ((108, 192), "blobs", 2, 128, 128, True),
-    ((40, 54), "random", 5, 32, 12, True), ((40, 54), "random", 400, 32, 12, True),
-    ((256, 330), "random", 2, 32, 12, True), ((1080, 1920), "random", 1, 32, 12, True),
+@pytest.mark.parametrize("shape,kind,b,k1,k2", [
+    ((40, 54), "random", 2, 32, 12), ((192, 108), "random", 2, 32, 12),
+    ((60, 203), "blobs", 2, 32, 12), ((108, 192), "random", 2, 32, 0),
+    ((120, 160), "random", 3, 32, 12), ((60, 203), "random", 2, 32, 12),
+    ((37, 33), "random", 3, 32, 12), ((108, 192), "serpentine", 2, 32, 12),
+    ((40, 54), "ones", 2, 32, 12), ((40, 54), "zeros", 2, 32, 12),
+    ((108, 192), "blobs", 2, 32, 12), ((108, 192), "blobs", 2, 128, 128),
+    ((40, 54), "random", 5, 32, 12), ((40, 54), "random", 400, 32, 12),
+    ((256, 330), "random", 2, 32, 12), ((1080, 1920), "random", 1, 32, 12),
 ])
-def test_fused_fit_kernel_matches_plain(shape, kind, b, k1, k2, dup_skip):
+def test_fused_fit_kernel_matches_plain(shape, kind, b, k1, k2):
     dev = cuda_device()
     l1, l2 = segment.label_planes(coarse_masks(kind, b, shape, 0.35, seed=33).to(dev), P)
-    got = kfit.fused_fit_batch(l1, l2, 10, P, k1, k2, dup_skip=dup_skip)
-    ref = kfit.fused_fit_plain(l1, l2, 10, P, k1, k2, dup_skip=dup_skip)
+    got = kfit.fused_fit_batch(l1, l2, 10, P, k1, k2)
+    ref = kfit.fused_fit_plain(l1, l2, 10, P, k1, k2)
     _assert_fit_equal(got[0], ref[0])
     assert (got[1] is None) == (ref[1] is None) == (k2 == 0)
     if k2:

@@ -416,7 +416,7 @@ def test_graph_takes_several_inputs():
     def fn(a, b, c):
         return {"sum": a + b.to(a.dtype), "any": c.any(), "rows": a.sum(dim=1)}
 
-    g = graph.Graph(fn, specs, None, dev)
+    g = graph.Graph(fn, specs, dev)
     for seed in (1, 2):
         gen = torch.Generator().manual_seed(seed)
         a = torch.randn(4, 8, generator=gen).to(dev)
@@ -428,6 +428,27 @@ def test_graph_takes_several_inputs():
     with pytest.raises(ValueError, match="graph captured for"):
         g(a, b.float(), c)
     assert len(g.inputs) == 3 and g.kernel_nodes > 0
+
+
+@pytest.mark.gpu
+def test_failed_capture_names_its_specs_and_caches_nothing():
+    """A function that syncs the host (``.item()``) runs in the warm-up but
+    fails its capture: a RuntimeError that names the input specs, chained
+    to torch's own, and no graph under the key; the cache then captures
+    another function as before."""
+    from aruco3_tpu_torch.runtime import graph
+
+    dev = cuda_device()
+    cache = graph.GraphCache(2)
+    specs = [((4, 8), torch.float32)]
+    with pytest.raises(RuntimeError, match=r"inputs \[\(\(4, 8\), torch.float32\)\]") as e:
+        cache.get("item", lambda: (lambda x: x * x.sum().item()), specs, dev)
+    assert e.value.__cause__ is not None
+    assert "item" not in cache.graphs
+    x = torch.randn(4, 8).to(dev)
+    got = cache.get("sum", lambda: (lambda x: x * x.sum()), specs, dev)(x)
+    torch.testing.assert_close(got, x * x.sum(), rtol=0, atol=0)
+    assert list(cache.graphs) == ["sum"]
 
 
 def _nccl_world_of_one():

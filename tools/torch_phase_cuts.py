@@ -190,8 +190,7 @@ def time_variant(kernels: str, name: str) -> None:
         for path in ("portrait", "small"):
             c, ds = coarse[path]
             l1, l2 = k2.coarse_labels(c, P)
-            ms = cs.device_ms(lambda: kfit.fused_fit_batch(l1, l2, ds, P, 32, 12, dup_skip=True),
-                              reps=5)
+            ms = cs.device_ms(lambda: kfit.fused_fit_batch(l1, l2, ds, P, 32, 12), reps=5)
             print(f"k7 cut {path} batch {c.shape[0]} {name}: device_ms {ms:.4f}", flush=True)
 
 
