@@ -46,7 +46,7 @@ _LL = ctypes.c_longlong
 
 # C signatures: every pointer and the stream as c_void_p.
 SIGNATURES = {
-    "a3_frontend": [_PTR] * 5 + [_INT] * 13 + [_PTR],
+    "a3_frontend": [_PTR] * 5 + [_INT] * 14 + [_PTR],
     "a3_coarse_layout": [_INT] * 3 + [_PTR],
     "a3_coarse_fit": [_PTR] * 15 + [_INT] * 15 + [_FLT, _FLT] + [_INT] * 2 + [_LL, _PTR],
     "a3_coarse_labels": [_PTR] * 4 + [_INT] * 13 + [_LL, _PTR],

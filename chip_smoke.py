@@ -91,7 +91,12 @@ Phases, each printing lines of numbers:
    planes at batch 128 the fused kernel 2 against
    labels mode + kernel 7, and on the noref quads at batch 128 kernel 8
    against ``grid_sample`` and the tail route's warp + decode against
-   kernel 4's.
+   kernel 4's; kernel 1 alone at the benchmark's three batch cells' shapes
+   (128 1080p frames at ds 10, 16 4K frames at ds 10, 64 VGA frames at ds
+   4; r = 7, open radius 2, level 1 by the chain), its outputs bit-equal to
+   its plain version's, its device ms beside its bound, its plain
+   version's ms and the layout it launched (``frontend_layout``: rows a
+   block walks, chunk rows, blocks).
 
 Phases 6-11 drive the other entry points, each once; phase 12 the
 configurations users run, phase 13 the settings they change:
@@ -1044,6 +1049,44 @@ def batch_kernel_timing(path, det, frames, card) -> dict:
             share_of_bound=round(b_ms / ms, 3))
         out[name] = (ms, b_ms, b_by)
     return out
+
+
+# Kernel 1 at the benchmark's batch cells: (frames, height, width, ds).
+FRONTEND_CELLS = {"mip36h12_1080p.batch128": (128, 1080, 1920, 10),
+                  "apriltag36h11_4k_dense.batch16": (16, 2160, 3840, 10),
+                  "aruco_default_vga.batch64": (64, 480, 640, 4)}
+
+
+def frontend_cells_timing(det, frames, card) -> None:
+    """Kernel 1 alone at each batch cell's shape (frames of that size cut
+    from the 1080p ``frames``, tiled where the cell's are larger, each
+    frame turned by its own offset; the refine route's mode): outputs
+    bit-equal to the plain version's, device ms (profiler) beside the
+    bound, the plain version's ms (CUDA events) and the layout launched."""
+    import torch
+
+    from aruco3_tpu_torch.ops import frontend
+
+    params = det.geometry(*frames.shape[1:])[0]
+    src = torch.from_numpy(np.ascontiguousarray(frames)).cuda()
+    for cell, (b, h, w, ds) in FRONTEND_CELLS.items():
+        tiled = src.repeat(1, -(-h // src.shape[1]), -(-w // src.shape[2]))[:, :h, :w]
+        grey = torch.stack([torch.roll(tiled[i % len(tiled)], (7 * i, 13 * i), (0, 1))
+                            for i in range(b)]).contiguous()
+        args = (grey, det.config.threshold_window, params.open_radius, ds, False, True)
+        got = frontend.threshold_open_pool(*args)
+        layout = frontend.count.fields["frontend_layout"]
+        ref = frontend.plain(*args)
+        require(all(torch.equal(a, r) for a, r in zip(got, ref, strict=True)),
+                f"frontend at {cell}: differs from its plain version")
+        ms = device_ms(lambda: frontend.threshold_open_pool(*args), reps=5,
+                       kernel=CUDA_NAMES["frontend"])
+        p_ms = cuda_ms(lambda: frontend.plain(*args), reps=2)
+        b_ms, b_by = bound(*work("frontend", args, got))
+        log("timing frontend at cell", cell=cell, card=repr(card), batch=b,
+            frontend_layout=layout, device_ms=round(ms, 4), plain_ms=round(p_ms, 4),
+            bound_ms=round(b_ms, 5), bound_by=b_by, share_of_bound=round(b_ms / ms, 3))
+        del grey, got, ref
 
 
 def route_timing(det, frames, card) -> None:
@@ -2094,6 +2137,7 @@ def run(reference, pose_cpu, stream_frames) -> int:
         if path == "noref":
             tail_timing(d, big, card, args_of["noref"]["warp_eval"])
         del big
+    frontend_cells_timing(det, paths["landscape"][1], card)
 
     table = wrappers()
     rows = [kernel_timing(name, path, table[name], args_of[path][name], phase3[path][name],

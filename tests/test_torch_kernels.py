@@ -9,6 +9,8 @@ On the CPU each wrapper takes its plain version, which the twin tests
 (tests/test_torch_*.py) hold against the JAX package.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -70,24 +72,43 @@ def test_label_route_takes_plain_versions_on_cpu():
     assert got == {name: (0, ran.get(name, 0)) for name in COUNTS}
 
 
+def _grey_batch(rng, b, h, w, dev):
+    """b grey frames: up to four of ``noisy_blocks``, the rest those turned
+    by a few rows and columns each."""
+    base = torch.from_numpy(noisy_blocks(rng, min(b, 4), h, w)).to(dev)
+    extra = [torch.roll(base[i % len(base)], (7 * i, 13 * i), (0, 1)) for i in range(len(base), b)]
+    return torch.cat([base, torch.stack(extra)]) if extra else base
+
+
+def _walks(b, h, w, window, open_radius, ds):
+    run, chunk, _ = k1.plan(b, h, w, window, open_radius, ds)
+    return run > chunk
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,ds,window,open_radius", [
-    ((240, 320), 2, 7, 2), ((250, 333), 10, 7, 2), ((1080, 1920), 10, 7, 2),
-    ((120, 160), 1, 7, 2), ((1920, 1080), 10, 7, 2), ((2160, 3840), 20, 7, 2),
-    ((97, 203), 3, 7, 2), ((40, 50), 2, 7, 2),
-    ((250, 333), 10, 3, 2), ((250, 333), 10, 15, 2), ((250, 333), 10, 88, 2),
-    ((250, 333), 10, 130, 2),
-    ((250, 333), 10, 7, 0), ((250, 333), 10, 7, 1), ((250, 333), 10, 7, 7),
-    ((250, 333), 10, 7, 14),
+@pytest.mark.parametrize("shape,ds,window,open_radius,b", [
+    ((240, 320), 2, 7, 2, 2), ((250, 333), 10, 7, 2, 2), ((1080, 1920), 10, 7, 2, 2),
+    ((120, 160), 1, 7, 2, 2), ((1920, 1080), 10, 7, 2, 2), ((2160, 3840), 20, 7, 2, 2),
+    ((97, 203), 3, 7, 2, 2), ((40, 50), 2, 7, 2, 2),
+    ((250, 333), 10, 3, 2, 2), ((250, 333), 10, 15, 2, 2), ((250, 333), 10, 88, 2, 2),
+    ((250, 333), 10, 130, 2, 2),
+    ((250, 333), 10, 7, 0, 2), ((250, 333), 10, 7, 1, 2), ((250, 333), 10, 7, 7, 2),
+    ((250, 333), 10, 7, 14, 2), ((250, 333), 10, 140, 2, 2),
+    # batches whose blocks walk their strips
+    ((480, 640), 4, 7, 2, 64), ((2160, 3840), 10, 7, 2, 16), ((250, 333), 10, 130, 2, 4),
+    ((250, 333), 10, 7, 14, 128), ((250, 333), 10, 140, 2, 4),
 ])
-def test_frontend_kernel_matches_plain(shape, ds, window, open_radius):
+def test_frontend_kernel_matches_plain(shape, ds, window, open_radius, b):
     """Frames from 40x50 (level 1 padded past the image) to 4K, widths that
     are no multiple of 16 or of ds, windows whose column sums need 32 bits
-    (130), open radii 0 to 14; the optional opened mask against
-    ``segment.open_mask``."""
+    (130) and whose strips are wider than the block (140: two grey columns
+    a thread), open radii 0 to 14; the optional opened mask against
+    ``segment.open_mask``; batches whose blocks walk (the VGA and dense 4K
+    cells' shapes, windows 130 and 140, open radius 14)."""
     dev = cuda_device()
     rng = np.random.default_rng(1)
-    grey = torch.from_numpy(noisy_blocks(rng, 2, *shape)).to(dev)
+    grey = _grey_batch(rng, b, *shape, dev)
+    assert _walks(b, *shape, window, open_radius, ds) == (b > 2)
     got = k1.threshold_open_pool(grey, window, open_radius, ds, opened=True)
     ref = k1.plain(grey, window, open_radius, ds)
     ref += (segment.open_mask(~frontend.adaptive_threshold(grey, window), open_radius),)
@@ -98,15 +119,18 @@ def test_frontend_kernel_matches_plain(shape, ds, window, open_radius):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,ds", [((240, 320), 2), ((1080, 1920), 10), ((120, 160), 1),
-                                      ((97, 203), 3), ((40, 50), 2), ((2160, 3840), 20)])
-def test_frontend_kernel_chain_level1_matches_plain(shape, ds):
+@pytest.mark.parametrize("shape,ds,b", [((240, 320), 2, 2), ((1080, 1920), 10, 2), ((120, 160), 1, 2),
+                                        ((97, 203), 3, 2), ((40, 50), 2, 2), ((2160, 3840), 20, 2),
+                                        ((1080, 1920), 10, 128)])
+def test_frontend_kernel_chain_level1_matches_plain(shape, ds, b):
     """The refine route's mode: level 1 in bfloat16 by the chain
     (``rectify.level1_plane(chain=True)``) bit for bit, level 1 padded past
-    the image at 40x50, the other outputs those of the exact mode."""
+    the image at 40x50, the other outputs those of the exact mode; at the
+    1080p batch cell's 128 frames, whose blocks walk."""
     dev = cuda_device()
     rng = np.random.default_rng(2)
-    grey = torch.from_numpy(noisy_blocks(rng, 2, *shape)).to(dev)
+    grey = _grey_batch(rng, b, *shape, dev)
+    assert _walks(b, *shape, 7, 2, ds) == (b > 2)
     got = k1.threshold_open_pool(grey, 7, 2, ds, chain=True)
     ref = k1.plain(grey, 7, 2, ds, chain=True)
     assert got[2].dtype == torch.bfloat16
@@ -117,35 +141,94 @@ def test_frontend_kernel_chain_level1_matches_plain(shape, ds):
     assert torch.equal(got[0], exact[0]) and torch.equal(got[1], exact[1])
 
 
+# The grid of a frame alone before the strips walked (tiles of 110 x 240
+# at 1080x1920, 120 x 220 portrait, ...): at one frame a launch takes no
+# fewer blocks.
+FRAME_ALONE_BLOCKS = {((1080, 1920), 7, 2): 80, ((1920, 1080), 7, 2): 80,
+                      ((2160, 3840), 7, 2): 352, ((120, 160), 7, 2): 1, ((97, 203), 7, 2): 1,
+                      ((40, 50), 7, 2): 1, ((250, 333), 130, 2): 850, ((250, 333), 7, 7): 6,
+                      ((333, 250), 7, 14): 24, ((250, 333), 140, 2): 136}
+
+
+@pytest.mark.parametrize("b", [1, 16, 64, 128])
 @pytest.mark.parametrize("shape,window,open_radius,ds", [
     ((1080, 1920), 7, 2, 10), ((1920, 1080), 7, 2, 10), ((2160, 3840), 7, 2, 20),
     ((120, 160), 7, 2, 1), ((97, 203), 7, 2, 3), ((40, 50), 7, 2, 2),
     ((250, 333), 130, 2, 10), ((250, 333), 7, 7, 10), ((333, 250), 7, 14, 7),
+    ((250, 333), 140, 2, 10),
 ])
-def test_frontend_plan_covers_each_output_once(shape, window, open_radius, ds):
-    """The tiles of ``plan`` write every pixel, coarse cell and level-1
-    cell exactly once, keep coarse and level-1 cells whole, and fit in
-    shared memory."""
+def test_frontend_plan_covers_each_output_once(shape, window, open_radius, ds, b):
+    """Over every block's walk the chunks of ``plan`` write every pixel,
+    coarse cell and level-1 cell exactly once, each coarse and level-1 cell
+    inside one chunk of one block, and fit in shared memory, two blocks an
+    SM where a walk runs at r = 7, open radius 2; a walk gives at least a
+    wave of resident blocks, and a frame alone one chunk a block on a grid
+    no smaller than before the walk."""
     h, w = shape
-    th, tw = k1.plan(h, w, window, open_radius, ds)
-    assert th % ds == tw % ds == th % 2 == tw % 2 == 0
-    assert k1.smem_bytes(th, tw, window, open_radius) <= k1.SMEM_MAX
+    run, chunk, tw = k1.plan(b, h, w, window, open_radius, ds)
+    assert run % chunk == chunk % ds == tw % ds == chunk % 2 == tw % 2 == 0
+    smem = k1.smem_bytes(chunk, tw, window, open_radius, run > chunk)
+    assert smem <= k1.SMEM_MAX
+    blocks = math.prod(k1.grid(b, h, w, ds, run, tw))
+    if run > chunk and (window, open_radius) == (7, 2):
+        assert smem <= k1.smem_per_block(2) and blocks >= 2 * k1.SMS
+    if b == 1:
+        assert run == chunk and blocks >= FRAME_ALONE_BLOCKS[shape, window, open_radius]
     (hc, wc), (h1, w1) = k1._shapes(h, w, ds)
     hits = [np.zeros(s, np.int32) for s in ((h, w), (hc, wc), (h1, w1))]
-    for ranges in k1.tiles(h, w, ds, th, tw):
-        for plane, ((ya, yb), (xa, xb)) in zip(hits, ranges):
-            plane[ya:yb, xa:xb] += 1
+    walked = {}
+    for (by, bx), k, ranges in k1.tiles(h, w, ds, run, chunk, tw):
+        assert walked.setdefault((by, bx), -1) == k - 1  # chunks in order down the run
+        walked[by, bx] = k
+        (ya, yb), (xa, xb) = ranges[0]
+        y0, x0 = by * run + k * chunk, bx * tw
+        assert ya == y0 and xa == x0 and y0 + chunk <= (by + 1) * run
+        for plane, ((a0, a1), (c0, c1)) in zip(hits, ranges):
+            plane[a0:a1, c0:c1] += 1
+        for ((a0, a1), (c0, c1)), f in zip(ranges[1:], (ds, 2)):
+            # each cell's rows and columns lie inside the chunk's
+            assert a0 * f >= y0 and a1 * f <= y0 + chunk and c0 * f >= x0 and c1 * f <= x0 + tw
+    assert len(walked) * b == blocks
     for plane in hits:
         assert (plane == 1).all()
 
 
-def test_frontend_plan_refuses_what_does_not_fit():
+@pytest.mark.parametrize("b,h,w,window,open_radius,ds", [
+    (1, 1080, 1920, 400, 2, 10), (1, 1080, 1920, 7, 2, 0),
+    (1, 1080, 1920, 7, k1.MAX_OPEN_RADIUS + 1, 10), (0, 1080, 1920, 7, 2, 10),
+])
+def test_frontend_plan_refuses_what_does_not_fit(b, h, w, window, open_radius, ds):
     with pytest.raises(ValueError):
-        k1.plan(1080, 1920, 400, 2, 10)
-    with pytest.raises(ValueError):
-        k1.plan(1080, 1920, 7, 2, 0)
-    with pytest.raises(ValueError):
-        k1.plan(1080, 1920, 7, k1.MAX_OPEN_RADIUS + 1, 10)
+        k1.plan(b, h, w, window, open_radius, ds)
+
+
+@pytest.mark.parametrize("b", [1, 128])
+@pytest.mark.parametrize("shape,open_radius,ds", [
+    ((1080, 1920), 2, 10), ((480, 640), 2, 4), ((97, 203), 2, 3), ((250, 333), 0, 2),
+    ((333, 250), 14, 7),
+])
+def test_frontend_plan_gives_what_the_launch_takes(shape, open_radius, ds, b):
+    """For every window up to 260 ``plan`` either refuses or gives a
+    layout that ``a3_frontend`` launches: at most two grey columns a
+    thread, mask rows in 9 words, one morphology window a warp, the shared
+    memory within a block's; windows up to 137 plan at open radius 2, up
+    to 197 at 1080p, with strips past the block's width among them."""
+    eb = 2 * open_radius + 2
+    window_rows = (32 if eb <= 10 else 64) - 2 * eb
+    planned = []
+    for window in range(261):
+        try:
+            run, chunk, tw = k1.plan(b, *shape, window, open_radius, ds)
+        except ValueError:
+            continue
+        planned.append(window)
+        gc = tw + 2 * (window + eb)
+        assert gc <= 2 * k1.BLOCK and -(-(tw + 2 * eb) // 32) <= 9
+        assert -(-chunk // window_rows) <= k1.WARPS and run % chunk == 0
+        assert k1.smem_bytes(chunk, tw, window, open_radius, run > chunk) <= k1.SMEM_MAX
+    assert planned == list(range(len(planned)))  # the windows that plan are 0 up to one
+    if open_radius == 2:
+        assert planned[-1] >= (197 if shape == (1080, 1920) else 137)
 
 
 # (shape, kind, density, batch): widths at, above and between multiples

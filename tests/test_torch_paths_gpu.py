@@ -239,6 +239,33 @@ def test_graph_record_names_kernel_2_layout(h, w, cfg, b, want):
     assert k2.labels_count.launches == 2  # the warm-up's and the first replay's
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,walks", [(1, False), (64, True)])
+def test_graph_record_names_frontend_layout(b, walks):
+    """The capture record's ``frontend_layout`` is the layout kernel 1's
+    wrapper launched, [rows a block walks, chunk rows, blocks]: at 64 VGA
+    frames (the VGA batch cell's shape) the blocks walk their strips in
+    several chunks, a frame alone takes one chunk a block."""
+    import math
+
+    from aruco3_tpu_torch.utils import profiling
+
+    dev = cuda_device()
+    det = Detector(DetectorConfig(), ARDictionary.new_from_named_dict("ARUCO_DEFAULT"), device=dev)
+    frames = torch.from_numpy(np.stack(
+        [make_scene(KINDS[i % len(KINDS)], 640, 480, 2.0)[0] for i in range(b)])).to(dev)
+    k1.count.reset()
+    det.detect_batch(frames)  # captures
+    log = profiling.captures()[-1]
+    run, chunk, blocks = log["frontend_layout"]
+    assert log["frontend_layout"] == k1.count.fields["frontend_layout"]
+    assert (run > chunk) == walks and run % chunk == 0
+    params, _, _, ds = det.geometry(480, 640)
+    tw = k1.plan(b, 480, 640, det.config.threshold_window, params.open_radius, ds)[2]
+    assert blocks == math.prod(k1.grid(b, 480, 640, ds, run, tw))
+    assert k1.count.launches == 2  # the warm-up's and the first replay's
+
+
 ROUTE_OF = {"fused": "fused", "labels": "labels", "labels_k5_k6": "labels",
             "tail_noref": "tail", "tail_gather": "tail", "tail_ds1": "tail"}
 SEGMENT_PARTS = ["aruco3.segment.fit", "aruco3.segment.refine", "aruco3.segment.finalize"]
